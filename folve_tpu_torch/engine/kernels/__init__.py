@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version.  A wrapper launches its kernel for CUDA tensors and runs the
+plain version for CPU tensors; ``<wrapper>.launches`` counts launches."""
