@@ -13,13 +13,12 @@ Phases (any failure exits nonzero; no phase's exception is caught):
                single-block write_processed path for a ragged end
 Prints the card's name and power limit first, a "kernels" JSON line before the
 last line, and as the last line {"ok": true, "device": {...}}.
-``--phases a,b`` runs a subset (the build always runs).
 """
 
 from __future__ import annotations
 
-import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -39,7 +38,7 @@ from folve_tpu_torch.engine.kernels.conv_step import (
 from folve_tpu_torch.engine.kernels.fdl_mac import fdl_mac_split, fdl_mac_split_plain
 from folve_tpu_torch.engine.kernels.fft_half import fft_real_half, fft_real_half_plain
 from folve_tpu_torch.engine.kernels.ifft_half import ifft_ola, ifft_ola_plain
-from folve_tpu_torch.engine.rfft import get_plan, half_bins
+from folve_tpu_torch.engine.rfft import half_bins
 
 # Flagship configuration (BASELINE config 5): 131,072-tap stereo filter.
 SIZE, FRAGM, P, CIN, COUT, S, T = 131072, 8192, 16, 2, 2, 8, 8
@@ -101,19 +100,11 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def fwd_flops(n: int, length: int) -> float:
-    """Operations of one real forward transform to the half spectrum."""
-    pl = get_plan(n)
-    rows, cols = -(-length // pl.m2), pl.m2 // 2 + 1
-    return 4.0 * pl.m1 * rows * pl.m2 + 6.0 * pl.m1 * pl.m2 + 8.0 * pl.m1 * cols * pl.m2
-
-
-def inv_flops(n: int) -> float:
-    """Operations of one weighted inverse from the half spectrum + OLA."""
-    pl = get_plan(n)
-    cols = pl.m2 // 2 + 1
-    return (2.0 * pl.m1 * cols + 8.0 * pl.m1 * cols * pl.m2 + 6.0 * pl.m1 * pl.m2
-            + 4.0 * pl.m1 * pl.m1 * pl.m2 + n / 2)
+def fft_ops(n: int) -> float:
+    """Operations of one real FFT of length ``n`` (the textbook
+    2.5*n*log2(n)): what the function needs, whatever the kernel's own
+    DFT schedule does."""
+    return 2.5 * n * math.log2(n)
 
 
 def max_err(got, ref) -> tuple[float, float]:
@@ -147,7 +138,7 @@ def phase_kernels(dev, results: dict) -> None:
     ref = fft_real_half_plain(x, N)
     err = check_kernel("fft_real_half", got, ref)
     r = S * T * CIN
-    bms, bby = bound(r * fwd_flops(N, b), 4.0 * r * (b + 2 * K))
+    bms, bby = bound(r * fft_ops(N), 4.0 * r * (b + 2 * K))
     results["fft_real_half"] = dict(
         max_abs_err=err, ms=time_ms(lambda: fft_real_half(x, N), 20),
         plain_ms=time_ms(lambda: fft_real_half_plain(x, N), 5),
@@ -178,7 +169,9 @@ def phase_kernels(dev, results: dict) -> None:
     spec = torch.complex(cu(rng.standard_normal((S * T * COUT, N // 2 + 1))),
                          cu(rng.standard_normal((S * T * COUT, N // 2 + 1))))
     nrow = S * T * COUT
-    bms, bby = bound(nrow * inv_flops(N), 4.0 * (nrow * (2 * K + b) + 2 * S * COUT * b))
+    # Per row: the inverse FFT, the c/n weight on each bin, the OLA add.
+    bms, bby = bound(nrow * (fft_ops(N) + 2 * K + b),
+                     4.0 * (nrow * (2 * K + b) + 2 * S * COUT * b))
     results["ifft_ola"] = dict(
         max_abs_err=err, ms=time_ms(lambda: ifft_ola(yr, yi, tail, N), 20),
         plain_ms=time_ms(lambda: ifft_ola_plain(yr, yi, tail, N), 5),
@@ -193,7 +186,7 @@ def phase_kernels(dev, results: dict) -> None:
     nv = np.array([T * b] * (S - 2) + [T * b - b // 2 - 3, 5 * b + 11])
     valid = torch.from_numpy(np.clip(nv[:, None] - np.arange(T)[None] * b, 0, b)
                              .astype(np.int32)).to(dev)
-    err = 0.0
+    err, timed = 0.0, None
     for hist_t in (True, False):
         shape = (S, P - 1, CIN, cols, m1) if hist_t else (S, P - 1, CIN, K)
         h_re, h_im = cu(rng.standard_normal(shape)), cu(rng.standard_normal(shape))
@@ -201,13 +194,18 @@ def phase_kernels(dev, results: dict) -> None:
         got = conv_step_fused(*args, hist_t=hist_t)
         ref = conv_step_fused_plain(*args, hist_t=hist_t)
         err = max(err, check_kernel(f"conv_step_fused(hist_t={hist_t})", got, ref))
-    flops = S * T * (CIN * fwd_flops(N, b) + 8.0 * P * CIN * COUT * K + COUT * inv_flops(N))
-    nbytes = 4.0 * (hp.numel() + xs.numel() + 2 * S * T * COUT * b // 2 * 2
+        if hist_t:  # the serving layout: time the call that was checked
+            timed = args
+    # Per (stream, block): Cin forward and Cout inverse FFTs, the MAC, the
+    # OLA add.  Bytes: H, x, y, hist in and out (two planes each), tail in
+    # and out, valid, max.
+    flops = S * T * ((CIN + COUT) * fft_ops(N) + 8.0 * P * CIN * COUT * K + COUT * b)
+    nbytes = 4.0 * (hp.numel() + xs.numel() + S * T * COUT * b
                     + 4 * h_re.numel() + 2 * tl.numel() + valid.numel() + S)
     bms, bby = bound(flops, nbytes)
     results["conv_step_fused"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: conv_step_fused(*args, hist_t=True), 5),
-        plain_ms=time_ms(lambda: conv_step_fused_plain(*args, hist_t=True), 5),
+        max_abs_err=err, ms=time_ms(lambda: conv_step_fused(*timed, hist_t=True), 5),
+        plain_ms=time_ms(lambda: conv_step_fused_plain(*timed, hist_t=True), 5),
         library_ms=None, bound_ms=bms, bound_by=bby)
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -404,10 +402,6 @@ def phase_processor(dev, tmp: str) -> dict:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,serve_shared,serve_mixed,processor")
-    args = ap.parse_args()
-    phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a GPU is required",
               file=sys.stderr)
@@ -431,30 +425,22 @@ def main() -> int:
     log(f"  built in {_build.build_seconds:.1f} s")
 
     results: dict = {}
-    if "kernels" in phases:
-        phase_kernels(dev, results)
+    phase_kernels(dev, results)
 
     # Each kernel's launches come from the serving path it belongs to:
     # the fused kernel from shared-filter serving, the split kernels from
-    # mixed-filter serving.
-    launches = {}
+    # mixed-filter serving.  Every phase runs, so every count is measured.
     with tempfile.TemporaryDirectory(prefix="folve_chip_smoke_") as tmp:
-        if "serve_shared" in phases:
-            shared = phase_serve_shared(dev, tmp)
-            launches["conv_step_fused"] = shared["launches"]["conv_step_fused"]
-        if "serve_mixed" in phases:
-            mixed = phase_serve_mixed(dev, tmp)
-            for name in ("fft_real_half", "fdl_mac_split", "ifft_ola"):
-                launches[name] = mixed["launches"][name]
-        if "processor" in phases:
-            phase_processor(dev, tmp)
-    for name in KERNELS:
-        if name in results:
-            results[name]["launches"] = launches.get(name, 0)
+        shared = phase_serve_shared(dev, tmp)
+        mixed = phase_serve_mixed(dev, tmp)
+        phase_processor(dev, tmp)
+    results["conv_step_fused"]["launches"] = shared["launches"]["conv_step_fused"]
+    for name in ("fft_real_half", "fdl_mac_split", "ifft_ola"):
+        results[name]["launches"] = mixed["launches"][name]
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], **results[name])
-        for name in KERNELS if name in results]}
+        for name in KERNELS]}
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

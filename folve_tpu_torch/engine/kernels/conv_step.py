@@ -5,10 +5,13 @@ Replaces ``folve_tpu/engine/kernels/conv_step.py:_kernel`` (reached
 through ``pallas_conv_step_fused_pre`` and ``pallas_conv_step_fused``)
 with ``csrc/conv_step.cu``.
 
-Bound on the H100: operations.  Per stream and block at the flagship
-shape the FFT stages do 60 MFLOP (two forward, two inverse channels) and
-the MAC 4.3 MFLOP, against 64 KB of audio in, 64 KB out, and the 4.3 MB
-of filter spectra read once per call.  Design: one block
+Bound on the H100: bytes.  Per stream and block at the flagship shape
+the function needs 2.3 MFLOP of FFTs (two forward, two inverse channels,
+2.5*n*log2(n) each) and 4.3 MFLOP of MAC; per call it moves the 4.3 MB
+of filter spectra, the audio in and out, the tail, and the hist carry in
+and out (4 MB per stream), ~46 MB at S = 8 against ~0.42 GFLOP.  The
+kernel's dense DFT stages do 60 MFLOP per stream and block instead.
+Design: one block
 per stream loops over the chunk's blocks in order — the ring of past
 spectra and the overlap tail carry from one block to the next — with the
 ring and the MAC result in device-memory scratch (L2 resident) and the

@@ -3,14 +3,16 @@
 Replaces ``folve_tpu/engine/kernels/fft_half.py:pallas_fft_real_half``
 (Pallas body ``_kernel``) with ``csrc/fft_half.cu``.
 
-Bound on the H100: operations.  At the flagship shape (n = 16384, R = 16
-signals per stream) each signal reads 32 KB and writes 66 KB, while the
-two DFT stages do 4*m1*rows*m2 + 8*m1*cols*m2 = 12.7 MFLOP: ~130 FLOP
-per byte, far above the card's fp32 (non tensor core) balance of ~20.
-Design: grid (k1-row tiles, signals); the signal's non-zero rows sit in
-shared memory once per block and each warp computes whole k1 rows, both
-stages in registers and a per-warp shared row, in fp32 FMA (no TF32: the
-engine's -90 dB budget needs full fp32 products).
+Bound on the H100: bytes.  At the flagship shape (n = 16384, R = 16
+signals per stream) each signal reads 32 KB and writes 66 KB, and a real
+FFT needs 2.5*n*log2(n) = 0.57 MFLOP of it: ~6 FLOP per byte, below the
+card's fp32 (non tensor core) balance of ~20.  This kernel runs the two
+DFT stages as dense products instead, 4*m1*rows*m2 + 8*m1*cols*m2 =
+12.7 MFLOP per signal (22x the FFT count), which is what keeps it far
+above the bound.  Design: grid (k1-row tiles, signals); the signal's
+non-zero rows sit in shared memory once per block and each warp computes
+whole k1 rows, both stages in registers and a per-warp shared row, in
+fp32 FMA (no TF32: the engine's -90 dB budget needs full fp32 products).
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 Replaces ``folve_tpu/engine/kernels/ifft_half.py:pallas_ifft_ola``
 (Pallas body ``_ola_kernel``) with ``csrc/ifft_half.cu``.
 
-Bound on the H100: operations.  Per block and channel at n = 16384 the
-kernel reads 66 KB of spectrum and writes 32 KB of audio (plus the tail)
-and does 8*m1*cols*m2 + 4*m1*m1*m2 = 17 MFLOP, ~170 FLOP per byte.
+Bound on the H100: bytes.  Per block and channel at n = 16384 the
+kernel reads 66 KB of spectrum and writes 32 KB of audio (plus the tail),
+and a real inverse FFT needs 2.5*n*log2(n) = 0.57 MFLOP of it: ~6 FLOP
+per byte, below the card's fp32 balance of ~20.  This kernel's dense DFT
+stages do 8*m1*cols*m2 + 4*m1*m1*m2 = 17 MFLOP (30x the FFT count).
 Design: one block per (stream, t, channel) holds the whole complex
 intermediate V [m1, m2] in shared memory; the overlap tail that the TPU
 carried over a sequential t grid is instead added with two-term

@@ -31,7 +31,6 @@ import torch
 
 from folve_tpu_torch.engine.device import resolve_device
 from folve_tpu_torch.engine.filter_bank import FilterBank
-from folve_tpu_torch.engine.kernels.conv_step import permute_h_for_fused
 from folve_tpu_torch.engine.stream import (
     FusedServingCarry,
     StreamState,
@@ -144,9 +143,9 @@ class DeviceScheduler:
         _live_schedulers.add(self)
         self._max_batch = max_batch
         self._window_s = window_s
-        # LRU of device-side filter layouts derived from banks (the fused
-        # kernel's permuted spectra, per-stream stacks), keyed by the
-        # identities of the source tensors.
+        # LRU of the mixed-filter path's stacked spectra, keyed by the
+        # identities of the source tensors.  (The fused kernel's permuted
+        # spectra are cached per bank by engine.stream.eager_h_perm.)
         self._placed: "OrderedDict[object, Tuple]" = OrderedDict()
         # Live carry batches per bank signature (guarded by _mutex).
         self._fused_parents: Dict[Tuple, list] = {}
@@ -318,11 +317,6 @@ class DeviceScheduler:
             self._placed.popitem(last=False)
         return value
 
-    def _fused_h_perm(self, bank: FilterBank) -> torch.Tensor:
-        return self._place(
-            ("fusedperm", id(bank.h_spec)), (bank.h_spec,),
-            lambda: permute_h_for_fused(bank.h_spec, 2 * bank.fragm))
-
     def _execute(self, jobs: List[_Job]) -> None:
         n = len(jobs)
         # Row order inside a batch is free (each job resolves its own
@@ -345,11 +339,9 @@ class DeviceScheduler:
             # Lone stream: the single-stream step, through the fused
             # kernel when the shape allows; quantization folded in.
             job = jobs[0]
-            hp = (self._fused_h_perm(job.bank)
-                  if fused_serving_supported(job.bank, t_blocks) else None)
             t0 = time.perf_counter()
             state, y = single_chunk_step(job.bank, job.state, job.x,
-                                         int(job.n_valid), h_perm=hp)
+                                         int(job.n_valid))
             if job.quantize_bits is not None:
                 y = _quantize(y, job.quantize_bits)
             self._record(t0, 1)
@@ -396,8 +388,7 @@ class DeviceScheduler:
         else:
             carry = carry_from_states(
                 bank0, stack_states([_as_plain_state(s) for s in states]))
-        new_carry, y5 = fused_serving_step_pre(
-            bank0, carry, x5, nv, h_perm=self._fused_h_perm(bank0))
+        new_carry, y5 = fused_serving_step_pre(bank0, carry, x5, nv)
         s, t, cout = y5.shape[:3]
         y = y5.reshape(s, t, cout, bank0.fragm)
         self._record(t0, len(jobs), fused=True)
