@@ -3,16 +3,27 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits nonzero; no phase's exception is caught):
-  build        build the four CUDA kernels from folve_tpu_torch/engine/kernels/csrc
+  build        build the eight CUDA kernels from folve_tpu_torch/engine/kernels/csrc
   kernels      each kernel against its plain PyTorch version at the flagship
-               shapes (131,072-tap stereo, fragm 8192, P 16, S 8 x T 8), with
-               times, bounds and the torch.fft yardstick
+               shapes (131,072-tap stereo, fragm 8192, P 16, S 8 x T 8; the
+               window MAC at P 1 and at P 128 x T 64; the row-window FFTs for
+               each of 4 freq shards), with times, bounds and the torch.fft
+               yardstick
   serve_shared 8 streams of one filter through DeviceScheduler (fused kernel)
   serve_mixed  8 streams of two filters of one shape (split kernels)
   processor    a lone SoundProcessor: pump_chunk at 16 and 24 bits, then the
                single-block write_processed path for a ragged end
-Prints the card's name and power limit first, a "kernels" JSON line before the
-last line, and as the last line {"ok": true, "device": {...}}.
+  serve_short  8 streams of an 8,192-tap filter (P 1, window MAC), one shared
+               filter and then two filters
+  deep         a 1,048,576-tap bank (P 128) through chunk_step at T 64 (window
+               MAC)
+  sharded      the flagship through DeviceScheduler on a mesh of 4 freq shards
+               of the card (row-window FFT kernels), held against the
+               single-device split route
+Every serving phase holds the output to -90 dB against a float64 oracle and
+runs no plain MAC on a CUDA tensor.  Prints the card's name and power limit
+first, each phase's seconds, a "kernels" JSON line before the last line, and
+as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import time
 
 import numpy as np
 import torch
@@ -35,10 +47,27 @@ from folve_tpu_torch.engine.kernels.conv_step import (
     fused_preshape,
     permute_h_for_fused,
 )
-from folve_tpu_torch.engine.kernels.fdl_mac import fdl_mac_split, fdl_mac_split_plain
-from folve_tpu_torch.engine.kernels.fft_half import fft_real_half, fft_real_half_plain
-from folve_tpu_torch.engine.kernels.ifft_half import ifft_ola, ifft_ola_plain
-from folve_tpu_torch.engine.rfft import half_bins
+from folve_tpu_torch.engine.kernels.fdl_mac import (
+    fdl_mac,
+    fdl_mac_plain,
+    fdl_mac_split,
+    fdl_mac_split_plain,
+)
+from folve_tpu_torch.engine.kernels.fft_half import (
+    fft_real_half,
+    fft_real_half_plain,
+    fft_real_half_rows,
+    fft_real_half_rows_plain,
+)
+from folve_tpu_torch.engine.kernels.ifft_half import (
+    ifft_from_half,
+    ifft_from_half_plain,
+    ifft_ola,
+    ifft_ola_plain,
+    ifft_partial_rows,
+    ifft_partial_rows_plain,
+)
+from folve_tpu_torch.engine.rfft import get_plan, half_bins
 
 # Flagship configuration (BASELINE config 5): 131,072-tap stereo filter.
 SIZE, FRAGM, P, CIN, COUT, S, T = 131072, 8192, 16, 2, 2, 8, 8
@@ -51,6 +80,9 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-5   # max|kernel - plain| <= KERNEL_TOL * max|plain|
 SNR_LIMIT_DB = -90.0
+FREQ = 4            # freq shards of the sharded phase
+SHORT_SIZE = 8192   # one fragment: P = 1
+DEEP_SIZE, DEEP_T = 1 << 20, 64  # MAXSIZE: P = 128
 
 KERNELS = {
     "conv_step_fused": dict(
@@ -65,6 +97,18 @@ KERNELS = {
     "ifft_ola": dict(
         fn=ifft_ola, source="folve_tpu_torch/engine/kernels/csrc/ifft_half.cu",
         replaces="folve_tpu/engine/kernels/ifft_half.py:67"),
+    "fdl_mac": dict(
+        fn=fdl_mac, source="folve_tpu_torch/engine/kernels/csrc/fdl_mac.cu",
+        replaces="folve_tpu/engine/kernels/fdl_mac.py:222"),
+    "fft_real_half_rows": dict(
+        fn=fft_real_half_rows, source="folve_tpu_torch/engine/kernels/csrc/fft_half.cu",
+        replaces="folve_tpu/engine/kernels/fft_half.py:57"),
+    "ifft_partial_rows": dict(
+        fn=ifft_partial_rows, source="folve_tpu_torch/engine/kernels/csrc/ifft_half.cu",
+        replaces="folve_tpu/engine/kernels/ifft_half.py:177"),
+    "ifft_from_half": dict(
+        fn=ifft_from_half, source="folve_tpu_torch/engine/kernels/csrc/ifft_half.cu",
+        replaces="folve_tpu/engine/kernels/ifft_half.py:231"),
 }
 
 
@@ -75,6 +119,13 @@ def log(msg: str) -> None:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["fn"].launches = 0
+    fdl_mac_plain.cuda_calls = 0
+
+
+def no_plain_mac(phase: str) -> None:
+    """The serving path runs kernels on a card, never the plain MAC."""
+    assert fdl_mac_plain.cuda_calls == 0, (
+        f"{phase}: fdl_mac_plain ran {fdl_mac_plain.cuda_calls} times on CUDA tensors")
 
 
 def counts() -> dict:
@@ -207,9 +258,106 @@ def phase_kernels(dev, results: dict) -> None:
         max_abs_err=err, ms=time_ms(lambda: conv_step_fused(*timed, hist_t=True), 5),
         plain_ms=time_ms(lambda: conv_step_fused_plain(*timed, hist_t=True), 5),
         library_ms=None, bound_ms=bms, bound_by=bby)
+    kernels_window_mac(cu, rng, results)
+    kernels_row_windows(cu, rng, results)
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def mac_case(cu, rng, s: int, p: int, t: int, shared: bool) -> dict:
+    """Kernel 5 against its plain version at one shape, with its bound:
+    H, the window and Y each moved once, 8 FLOP per complex term."""
+    h = cu(rng.standard_normal(((p,) if shared else (s, p)) + (CIN, COUT, 2, K))
+           / np.sqrt(p * CIN))
+    xr = cu(rng.standard_normal((s, t + p - 1, CIN, K)))
+    xi = cu(rng.standard_normal((s, t + p - 1, CIN, K)))
+    err = check_kernel(f"fdl_mac(S={s}, P={p}, T={t})", fdl_mac(h, xr, xi, t),
+                       fdl_mac_plain(h, xr, xi, t))
+    bms, bby = bound(8.0 * s * t * COUT * p * CIN * K,
+                     4.0 * (h.numel() + 2 * xr.numel() + 2 * s * t * COUT * K))
+    return dict(shape=dict(S=s, P=p, T=t, Cin=CIN, Cout=COUT, K=K,
+                           shared_filter=shared),
+                max_abs_err=err, ms=time_ms(lambda: fdl_mac(h, xr, xi, t), 20),
+                plain_ms=time_ms(lambda: fdl_mac_plain(h, xr, xi, t), 3),
+                library_ms=None, bound_ms=bms, bound_by=bby)
+
+
+def kernels_window_mac(cu, rng, results: dict) -> None:
+    # Kernel 5 at serve_short's shape (an 8,192-tap filter: P = 1, the
+    # window is the new spectra) and at the deep phase's (P = 128, T = 64).
+    short = mac_case(cu, rng, S, 1, T, shared=True)
+    deep = mac_case(cu, rng, 1, DEEP_SIZE // FRAGM, DEEP_T, shared=True)
+    results["fdl_mac"] = dict(
+        {k: v for k, v in short.items() if k != "shape"},
+        max_abs_err=max(short["max_abs_err"], deep["max_abs_err"]),
+        cases=[short, deep])
+
+
+def kernels_row_windows(cu, rng, results: dict) -> None:
+    """Kernels 6 and 7 for each of FREQ k1 windows at the flagship shape,
+    the windows' partial inverses summed against the whole inverse, and
+    kernel 8.  Each window's bound counts its share of the FFT's
+    operations (2.5*n*log2(n) / FREQ) and its own bytes."""
+    b, r = FRAGM, S * T * CIN
+    plan = get_plan(N)
+    m1, cols = plan.m1, plan.m2 // 2 + 1
+    kn = m1 // FREQ
+    x = cu(rng.standard_normal((S, T, CIN, b)))
+    yr = cu(rng.standard_normal((S, T, COUT, K)))
+    yi = cu(rng.standard_normal((S, T, COUT, K)))
+    win = lambda a, ks: a.reshape(S, T, COUT, m1, cols)[..., ks:ks + kn, :].reshape(
+        S, T, COUT, kn * cols).contiguous()
+    spec = torch.complex(cu(rng.standard_normal((r, N // 2 + 1))),
+                         cu(rng.standard_normal((r, N // 2 + 1))))
+    fwd, inv, total = [], [], None
+    for f in range(FREQ):
+        ks = f * kn
+        err = check_kernel(f"fft_real_half_rows(window {f})",
+                           fft_real_half_rows(x, N, ks, kn),
+                           fft_real_half_rows_plain(x, N, ks, kn))
+        bms, bby = bound(r * fft_ops(N) / FREQ, 4.0 * r * (b + 2 * kn * cols))
+        fwd.append(dict(
+            k1_start=ks, k1_n=kn, max_abs_err=err, bound_ms=bms, bound_by=bby,
+            ms=time_ms(lambda: fft_real_half_rows(x, N, ks, kn), 20),
+            plain_ms=time_ms(lambda: fft_real_half_rows_plain(x, N, ks, kn), 5)))
+        wr, wi = win(yr, ks), win(yi, ks)
+        part = ifft_partial_rows(wr, wi, N, ks, kn)
+        err = check_kernel(f"ifft_partial_rows(window {f})", part,
+                           ifft_partial_rows_plain(wr, wi, N, ks, kn))
+        total = part if total is None else total + part
+        bms, bby = bound(r * (fft_ops(N) / FREQ + 2 * kn * cols),
+                         4.0 * r * (2 * kn * cols + N))
+        inv.append(dict(
+            k1_start=ks, k1_n=kn, max_abs_err=err, bound_ms=bms, bound_by=bby,
+            ms=time_ms(lambda: ifft_partial_rows(wr, wi, N, ks, kn), 20),
+            plain_ms=time_ms(lambda: ifft_partial_rows_plain(wr, wi, N, ks, kn), 5)))
+    whole = ifft_from_half_plain(yr, yi, N)
+    sum_err = check_kernel(f"sum of {FREQ} ifft_partial_rows vs ifft_from_half_plain",
+                           total, whole)
+    for name, rows, lib in (
+            ("fft_real_half_rows", fwd, time_ms(lambda: torch.fft.rfft(x, n=N), 20)),
+            ("ifft_partial_rows", inv, time_ms(lambda: torch.fft.irfft(spec, n=N), 20))):
+        results[name] = dict(
+            max_abs_err=max(w["max_abs_err"] for w in rows),
+            ms=float(np.mean([w["ms"] for w in rows])),
+            plain_ms=float(np.mean([w["plain_ms"] for w in rows])),
+            bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
+            library_ms=lib,
+            library=("torch.fft." + ("rfft" if name.startswith("fft") else "irfft")
+                     + " over all k1 rows (the whole transform), one call"),
+            per_window="ms, plain_ms, bound_ms are one window's (mean over windows)",
+            windows=rows)
+    results["ifft_partial_rows"]["sum_vs_whole_err"] = sum_err
+
+    # Kernel 8: the whole inverse at the flagship shape.
+    err = check_kernel("ifft_from_half", ifft_from_half(yr, yi, N), whole)
+    bms, bby = bound(r * (fft_ops(N) + 2 * K), 4.0 * r * (2 * K + N))
+    results["ifft_from_half"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: ifft_from_half(yr, yi, N), 20),
+        plain_ms=time_ms(lambda: ifft_from_half_plain(yr, yi, N), 5),
+        library_ms=time_ms(lambda: torch.fft.irfft(spec, n=N), 20),
+        bound_ms=bms, bound_by=bby)
 
 
 def write_float_wav(path: str, data: np.ndarray, rate: int) -> None:
@@ -224,17 +372,26 @@ def write_float_wav(path: str, data: np.ndarray, rate: int) -> None:
         f.write(b"RIFF" + np.uint32(len(body)).tobytes() + body)
 
 
-def make_config(tmp: str, name: str, seed: int) -> tuple[str, np.ndarray]:
-    """A seeded 131,072-tap true-stereo IR (decaying noise, one WAV channel
-    per in/out pair) and its zita config; returns (config path, ir
-    [Cin, Cout, SIZE] float32)."""
+def make_ir(seed: int, size: int) -> np.ndarray:
+    """A seeded true-stereo IR of ``size`` taps: decaying noise, float32
+    [Cin, Cout, size]."""
     rng = np.random.default_rng(seed)
-    env = np.exp(-np.arange(SIZE) / (SIZE / 6.0))
-    ir = (rng.standard_normal((CIN, COUT, SIZE)) * env).astype(np.float32)
+    env = np.exp(-np.arange(size) / (size / 6.0))
+    ir = (rng.standard_normal((CIN, COUT, size)) * env).astype(np.float32)
     ir *= np.float32(np.sqrt(0.5 / np.sum(ir[0, 0].astype(np.float64) ** 2)))
+    return ir
+
+
+def make_config(tmp: str, name: str, seed: int,
+                size: int | None = None) -> tuple[str, np.ndarray]:
+    """A seeded true-stereo IR (:func:`make_ir`, one WAV channel per
+    in/out pair, ``SIZE`` taps by default) and its zita config; returns
+    (config path, ir [Cin, Cout, size] float32)."""
+    size = SIZE if size is None else size
+    ir = make_ir(seed, size)
     wav = os.path.join(tmp, f"{name}.wav")
-    write_float_wav(wav, ir.reshape(CIN * COUT, SIZE).T, RATE)
-    lines = [f"/convolver/new {CIN} {COUT} {FRAGM} {SIZE}"]
+    write_float_wav(wav, ir.reshape(CIN * COUT, size).T, RATE)
+    lines = [f"/convolver/new {CIN} {COUT} {FRAGM} {size}"]
     for i in range(CIN):
         for o in range(COUT):
             lines.append(f"/impulse/read {i + 1} {o + 1} 1 0 0 0 {i * COUT + o + 1} {name}.wav")
@@ -262,10 +419,12 @@ def snr_db(ref: np.ndarray, out: np.ndarray) -> float:
     return float(10 * np.log10(np.sum(err ** 2) / np.sum(ref ** 2) + 1e-300))
 
 
-def serve(dev, configs: list, rounds: int = 6) -> tuple:
+def serve(dev, configs: list, rounds: int = 6, mesh=None) -> tuple:
     """S streams (stream i uses configs[i % len]) submit T-block chunks to
-    one DeviceScheduler from threads for ``rounds`` rounds; returns
-    (scheduler, worst SNR in dB against the float64 oracle)."""
+    one DeviceScheduler (on ``mesh`` when given) from threads for
+    ``rounds`` rounds; returns (scheduler, worst SNR in dB against the
+    float64 oracle, per-stream outputs [rounds*T, Cout, B], the input
+    audio [S, frames, Cin], the banks)."""
     from folve_tpu_torch.engine.stream import init_state
     from folve_tpu_torch.filters.compiler import compile_config_file
     from folve_tpu_torch.runtime.scheduler import DeviceScheduler
@@ -276,7 +435,7 @@ def serve(dev, configs: list, rounds: int = 6) -> tuple:
     rng = np.random.default_rng(7)
     b = FRAGM
     audio = (0.1 * rng.standard_normal((S, rounds * T * b, CIN))).astype(np.float32)
-    sched = DeviceScheduler(max_batch=S, window_s=0.2, device=dev)
+    sched = DeviceScheduler(max_batch=S, window_s=0.2, device=dev, mesh=mesh)
     banks = [compiled[i % len(compiled)].bank for i in range(S)]
     states = [init_state(banks[i], device=dev) for i in range(S)]
     outs = [[] for _ in range(S)]
@@ -305,12 +464,13 @@ def serve(dev, configs: list, rounds: int = 6) -> tuple:
         raise errors[0]
     assert not any(th.is_alive() for th in threads), "a stream never finished"
     worst = -np.inf
+    ys = []
     for i in range(S):
-        y = np.concatenate(outs[i], axis=0)  # [rounds*T, Cout, B]
-        y = y.transpose(0, 2, 1).reshape(-1, COUT)
+        ys.append(np.concatenate(outs[i], axis=0))  # [rounds*T, Cout, B]
+        y = ys[-1].transpose(0, 2, 1).reshape(-1, COUT)
         assert np.all(np.isfinite(y)) and y.shape == (rounds * T * b, COUT)
         worst = max(worst, snr_db(oracle(configs[i % len(configs)][1], audio[i]), y))
-    return sched, worst
+    return sched, worst, ys, audio, banks
 
 
 def report_serving(name: str, sched) -> dict:
@@ -321,7 +481,8 @@ def report_serving(name: str, sched) -> dict:
     step_s = float(np.median(steady))
     audio_s = S * T * FRAGM / RATE
     log(f"  {name}: {sched.steps} steps (fused {sched.fused_steps}, fast "
-        f"{sched.fused_fast_steps}, batched jobs {sched.batched_jobs}); step ms "
+        f"{sched.fused_fast_steps}, sharded {sched.sharded_steps}, sharded fast "
+        f"{sched.sharded_fast_steps}, batched jobs {sched.batched_jobs}); step ms "
         f"{[round(1e3 * v, 3) for v in steps]}; steady median {1e3 * step_s:.3f} ms "
         f"for {S} streams x {T} blocks = {audio_s:.2f} s of audio: "
         f"realtime factor {audio_s / step_s:.1f}")
@@ -332,9 +493,10 @@ def phase_serve_shared(dev, tmp: str) -> dict:
     log("phase serve_shared: 8 streams, one 131,072-tap stereo filter, DeviceScheduler")
     cfg = make_config(tmp, "shared", 11)
     reset_counts()
-    sched, worst = serve(dev, [cfg])
+    sched, worst, *_ = serve(dev, [cfg])
     c = counts()
     log(f"  launches {c}; worst SNR vs float64 oracle {worst:.2f} dB (limit {SNR_LIMIT_DB})")
+    no_plain_mac("serve_shared")
     assert sched.fused_steps > 0 and sched.fused_fast_steps > 0, "fused path not taken"
     assert c["conv_step_fused"] > 0, "fused kernel never launched"
     assert worst <= SNR_LIMIT_DB, f"shared serving SNR {worst:.2f} dB"
@@ -345,9 +507,10 @@ def phase_serve_mixed(dev, tmp: str) -> dict:
     log("phase serve_mixed: 8 streams, two filters of one shape in one batch")
     cfgs = [make_config(tmp, "mixa", 21), make_config(tmp, "mixb", 22)]
     reset_counts()
-    sched, worst = serve(dev, cfgs)
+    sched, worst, *_ = serve(dev, cfgs)
     c = counts()
     log(f"  launches {c}; worst SNR vs float64 oracle {worst:.2f} dB (limit {SNR_LIMIT_DB})")
+    no_plain_mac("serve_mixed")
     for name in ("fft_real_half", "fdl_mac_split", "ifft_ola"):
         assert c[name] > 0, f"{name} never launched"
     assert worst <= SNR_LIMIT_DB, f"mixed serving SNR {worst:.2f} dB"
@@ -397,8 +560,114 @@ def phase_processor(dev, tmp: str) -> dict:
         worst = max(worst, lsb)
     c = counts()
     log(f"  launches {c}")
+    no_plain_mac("processor")
     assert c["conv_step_fused"] > 0, "fused kernel never launched"
     return dict(launches=c, max_lsb=worst)
+
+
+def phase_serve_short(dev, tmp: str) -> dict:
+    log(f"phase serve_short: 8 streams, {SHORT_SIZE}-tap stereo filters (P = 1), "
+        "one shared filter, then two filters")
+    launches = 0
+    for cfgs in ([make_config(tmp, "short", 61, SHORT_SIZE)],
+                 [make_config(tmp, "shorta", 62, SHORT_SIZE),
+                  make_config(tmp, "shortb", 63, SHORT_SIZE)]):
+        reset_counts()
+        sched, worst, _, _, banks = serve(dev, cfgs, rounds=3)
+        c = counts()
+        assert banks[0].partitions == 1, banks[0].h_spec.shape
+        log(f"  {len(cfgs)} filter(s): launches {c}; worst SNR vs float64 oracle "
+            f"{worst:.2f} dB (limit {SNR_LIMIT_DB})")
+        report_serving(f"serve_short ({len(cfgs)} filters)", sched)
+        no_plain_mac("serve_short")
+        assert c["fdl_mac"] > 0, "window MAC never launched"
+        assert worst <= SNR_LIMIT_DB, f"serve_short SNR {worst:.2f} dB"
+        launches += c["fdl_mac"]
+    return dict(launches=launches)
+
+
+def phase_deep(dev) -> dict:
+    log(f"phase deep: a {DEEP_SIZE}-tap stereo bank (P = {DEEP_SIZE // FRAGM}) "
+        f"through chunk_step at T = {DEEP_T}, 3 chunks")
+    from folve_tpu_torch.engine.filter_bank import compile_filter_bank
+    from folve_tpu_torch.engine.stream import chunk_step, init_state
+
+    ir = make_ir(71, DEEP_SIZE)
+    bank = compile_filter_bank(ir, fragm=FRAGM, device=dev)
+    assert (bank.fragm, bank.partitions) == (FRAGM, DEEP_SIZE // FRAGM)
+    rng = np.random.default_rng(72)
+    rounds, b = 3, FRAGM
+    audio = (0.1 * rng.standard_normal((rounds * DEEP_T * b, CIN))).astype(np.float32)
+    reset_counts()
+    state, outs, steps = init_state(bank, device=dev), [], []
+    for r in range(rounds):
+        chunk = audio[r * DEEP_T * b:(r + 1) * DEEP_T * b]
+        x = np.ascontiguousarray(chunk.reshape(DEEP_T, b, CIN).transpose(0, 2, 1))
+        t0 = time.perf_counter()
+        state, y = chunk_step(bank, state, x)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        outs.append(y.cpu().numpy())
+    c = counts()
+    y = np.concatenate(outs).transpose(0, 2, 1).reshape(-1, COUT)
+    assert np.all(np.isfinite(y)) and y.shape == audio.shape
+    worst = snr_db(oracle(ir, audio), y)
+    audio_s = DEEP_T * b / RATE
+    log(f"  launches {c}; step ms {[round(1e3 * v, 3) for v in steps]} for one "
+        f"stream x {DEEP_T} blocks = {audio_s:.2f} s of audio: realtime factor "
+        f"{[round(audio_s / v, 1) for v in steps]}; SNR vs float64 oracle "
+        f"{worst:.2f} dB (limit {SNR_LIMIT_DB})")
+    no_plain_mac("deep")
+    assert c["fdl_mac"] > 0, "window MAC never launched"
+    assert worst <= SNR_LIMIT_DB, f"deep SNR {worst:.2f} dB"
+    return dict(launches=c["fdl_mac"], snr_db=worst)
+
+
+def phase_sharded(dev, tmp: str) -> dict:
+    log(f"phase sharded: the flagship through DeviceScheduler on {FREQ} freq "
+        "shards of the card")
+    from folve_tpu_torch.engine.stream import (
+        batched_chunk_step,
+        init_state,
+        stack_states,
+    )
+    from folve_tpu_torch.parallel import make_serving_mesh
+
+    mesh = make_serving_mesh(devices=[dev] * FREQ, freq_parallel=FREQ)
+    cfg = make_config(tmp, "sharded", 81)
+    rounds = 4
+    reset_counts()
+    sched, worst, ys, audio, banks = serve(dev, [cfg], rounds=rounds, mesh=mesh)
+    c = counts()
+    log(f"  launches {c}; worst SNR vs float64 oracle {worst:.2f} dB (limit {SNR_LIMIT_DB})")
+    report_serving("sharded", sched)
+    no_plain_mac("sharded")
+    for name in ("fft_real_half_rows", "ifft_partial_rows"):
+        assert c[name] > 0, f"{name} never launched"
+    assert sched.sharded_fast_steps > 0, "on-mesh state gather never ran"
+    assert worst <= SNR_LIMIT_DB, f"sharded serving SNR {worst:.2f} dB"
+    # The same inputs through the single-device split route.
+    b = FRAGM
+    states = stack_states([init_state(banks[0], device=dev)] * S)
+    split = []
+    for r in range(rounds):
+        x = np.ascontiguousarray(audio[:, r * T * b:(r + 1) * T * b].reshape(
+            S, T, b, CIN).transpose(0, 1, 3, 2))
+        states, y = batched_chunk_step(banks[0], states, x, [T * b] * S)
+        split.append(y.cpu().numpy())
+    split = np.concatenate(split, axis=1)  # [S, rounds*T, Cout, B]
+    got = np.stack(ys)
+    rel = float(np.max(np.abs(got - split)) / np.max(np.abs(split)))
+    log(f"  max|sharded - split route| / max|split| = {rel:.3e} (limit {KERNEL_TOL:g})")
+    assert rel <= KERNEL_TOL, "sharded output disagrees with the split route"
+    return dict(launches=c, snr_db=worst, rel_vs_split=rel)
+
+
+def run_phase(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"  phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -417,29 +686,50 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     log("phase build")
+    t0 = time.perf_counter()
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    log(f"  {nvcc[-1]}")
     _build.build_all()
     for name, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
     log(f"  built in {_build.build_seconds:.1f} s")
+    log(f"  phase build: {time.perf_counter() - t0:.1f} s")
 
     results: dict = {}
-    phase_kernels(dev, results)
+    run_phase("kernels", phase_kernels, dev, results)
 
     # Each kernel's launches come from the serving path it belongs to:
     # the fused kernel from shared-filter serving, the split kernels from
-    # mixed-filter serving.  Every phase runs, so every count is measured.
+    # mixed-filter serving, the window MAC from serve_short and deep, the
+    # row-window FFTs from sharded.  Every phase runs, so every count is
+    # measured; the whole inverse (ifft_from_half) has no caller.
     with tempfile.TemporaryDirectory(prefix="folve_chip_smoke_") as tmp:
-        shared = phase_serve_shared(dev, tmp)
-        mixed = phase_serve_mixed(dev, tmp)
-        phase_processor(dev, tmp)
+        shared = run_phase("serve_shared", phase_serve_shared, dev, tmp)
+        mixed = run_phase("serve_mixed", phase_serve_mixed, dev, tmp)
+        run_phase("processor", phase_processor, dev, tmp)
+        short = run_phase("serve_short", phase_serve_short, dev, tmp)
+        deep = run_phase("deep", phase_deep, dev)
+        sharded = run_phase("sharded", phase_sharded, dev, tmp)
+    callers = {"conv_step_fused": "serve_shared", "fdl_mac": "serve_short+deep",
+               "fft_real_half_rows": "sharded", "ifft_partial_rows": "sharded",
+               "ifft_from_half": None}
     results["conv_step_fused"]["launches"] = shared["launches"]["conv_step_fused"]
     for name in ("fft_real_half", "fdl_mac_split", "ifft_ola"):
         results[name]["launches"] = mixed["launches"][name]
+        callers[name] = "serve_mixed"
+    results["fdl_mac"]["launches"] = short["launches"] + deep["launches"]
+    results["fdl_mac"]["launches_by_phase"] = dict(
+        serve_short=short["launches"], deep=deep["launches"])
+    for name in ("fft_real_half_rows", "ifft_partial_rows"):
+        results[name]["launches"] = sharded["launches"][name]
+    results["ifft_from_half"]["launches"] = None
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
-             replaces=KERNELS[name]["replaces"], **results[name])
+             replaces=KERNELS[name]["replaces"], caller=callers[name],
+             **results[name])
         for name in KERNELS]}
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

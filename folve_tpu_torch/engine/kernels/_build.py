@@ -37,7 +37,7 @@ build_log: dict = {}
 build_seconds: float | None = None
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -70,7 +70,7 @@ def build_all() -> dict:
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
                    str(_CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

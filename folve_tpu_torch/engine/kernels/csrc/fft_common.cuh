@@ -122,18 +122,21 @@ __device__ __forceinline__ void inv_row(const Plan& P, int k1, float* trow,
   __syncwarp();
 }
 
-// Whole block of kBlockThreads: stage 2 of the inverse, real part only.
-// Thread (g, b) with b = tid % m2 accumulates x[n1, b] for
-// n1 = g + j*G (G = kBlockThreads / m2) into acc[j].
-__device__ __forceinline__ void inv_stage2(const Plan& P, const float* Vr,
-                                           const float* Vi,
-                                           float (&acc)[kMaxJ]) {
+// Whole block of kBlockThreads: stage 2 of the inverse over the k1 rows
+// [k1_begin, k1_end) of V, real part only.  Thread (g, b) with
+// b = tid % m2 accumulates x[n1, b] for n1 = g + j*G (G = kBlockThreads /
+// m2) into acc[j].  A window of rows gives a frequency shard's partial
+// sum; the windows of all shards add up to the whole inverse.
+__device__ __forceinline__ void inv_stage2_rows(const Plan& P, const float* Vr,
+                                                const float* Vi, int k1_begin,
+                                                int k1_end,
+                                                float (&acc)[kMaxJ]) {
   const int m1 = P.m1, m2 = P.m2;
   const int b = threadIdx.x % m2, g = threadIdx.x / m2;
   const int G = kBlockThreads / m2;
 #pragma unroll
   for (int j = 0; j < kMaxJ; ++j) acc[j] = 0.f;
-  for (int k1 = 0; k1 < m1; ++k1) {
+  for (int k1 = k1_begin; k1 < k1_end; ++k1) {
     const float vr = Vr[k1 * m2 + b], vi = Vi[k1 * m2 + b];
 #pragma unroll
     for (int j = 0; j < kMaxJ; ++j) {
@@ -144,6 +147,13 @@ __device__ __forceinline__ void inv_stage2(const Plan& P, const float* Vr,
       }
     }
   }
+}
+
+// Stage 2 over every k1 row: the whole inverse.
+__device__ __forceinline__ void inv_stage2(const Plan& P, const float* Vr,
+                                           const float* Vi,
+                                           float (&acc)[kMaxJ]) {
+  inv_stage2_rows(P, Vr, Vi, 0, P.m1, acc);
 }
 
 }  // namespace folve

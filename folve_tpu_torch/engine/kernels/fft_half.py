@@ -1,7 +1,12 @@
 """Forward real FFT to the permuted half spectrum.
 
 Replaces ``folve_tpu/engine/kernels/fft_half.py:pallas_fft_real_half``
-(Pallas body ``_kernel``) with ``csrc/fft_half.cu``.
+(Pallas body ``_kernel``) with ``csrc/fft_half.cu``, and
+``pallas_fft_real_half_rows`` (the same body over a window of k1 rows:
+one frequency shard's bins) with :func:`fft_real_half_rows`, the same
+CUDA kernel over that window.  The TPU kernel takes the shard's factor
+rows as inputs because its shard index is traced; here ``k1_start`` is
+an int and the kernel indexes the plan's factors.
 
 Bound on the H100: bytes.  At the flagship shape (n = 16384, R = 16
 signals per stream) each signal reads 32 KB and writes 66 KB, and a real
@@ -25,6 +30,14 @@ from folve_tpu_torch.engine.kernels import _build
 from folve_tpu_torch.engine.rfft import fft_real, half_bins, plan_tensors
 
 
+def _launch_args(x: torch.Tensor, n: int, what: str):
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32, got {x.dtype}")
+    if x.shape[-1] > n or n > 16384:
+        raise ValueError(f"{what}: length {x.shape[-1]}, n {n} unsupported")
+    return x.contiguous(), plan_tensors(n, x.device)
+
+
 def fft_real_half_plain(x: torch.Tensor, n: int):
     """Plain PyTorch version: ``engine.rfft.fft_real(x, n, half=True)``."""
     return fft_real(x, n, half=True)
@@ -35,25 +48,54 @@ def fft_real_half(x: torch.Tensor, n: int):
     each ``[..., half_bins(n)]`` in the permuted half-spectrum layout."""
     if not x.is_cuda:
         return fft_real_half_plain(x, n)
-    length = x.shape[-1]
-    if x.dtype != torch.float32:
-        raise TypeError(f"fft_real_half takes float32, got {x.dtype}")
-    if length > n or n > 16384:
-        raise ValueError(f"fft_real_half: length {length}, n {n} unsupported")
-    x = x.contiguous()
+    x, pt = _launch_args(x, n, "fft_real_half")
     batch = x.shape[:-1]
     k = half_bins(n)
     yr = torch.empty(*batch, k, device=x.device, dtype=torch.float32)
     yi = torch.empty_like(yr)
-    pt = plan_tensors(n, x.device)
     fn = _build.function("fft_half", "folve_fft_real_half", [
         _build.P, _build.P, _build.P, _build.P,
         _build.I, _build.I, _build.I, _build.I, _build.P])
     fft_real_half.launches += 1
     _build.check(fn(_build.ptr(x), _build.ptr(yr), _build.ptr(yi),
-                    _build.ptr(pt.packed), math.prod(batch), length,
+                    _build.ptr(pt.packed), math.prod(batch), x.shape[-1],
                     pt.m1, pt.m2, _build.stream_of(x)), "fft_real_half")
     return yr, yi
 
 
 fft_real_half.launches = 0
+
+
+def fft_real_half_rows_plain(x: torch.Tensor, n: int, k1_start: int,
+                             k1_n: int):
+    """Plain PyTorch version: ``engine.rfft.fft_real(x, n, half=True,
+    k1_start=k1_start, k1_n=k1_n)``."""
+    return fft_real(x, n, half=True, k1_start=k1_start, k1_n=k1_n)
+
+
+def fft_real_half_rows(x: torch.Tensor, n: int, k1_start: int, k1_n: int):
+    """The k1 rows ``[k1_start, k1_start + k1_n)`` of the half spectrum
+    (kernel 6).  ``x``: float32 ``[..., L]`` with L <= n.  Returns
+    ``(re, im)`` each ``[..., k1_n * cols]``, cols = M2/2 + 1."""
+    if not x.is_cuda:
+        return fft_real_half_rows_plain(x, n, k1_start, k1_n)
+    x, pt = _launch_args(x, n, "fft_real_half_rows")
+    if k1_n < 1 or k1_start < 0 or k1_start + k1_n > pt.m1:
+        raise ValueError(f"fft_real_half_rows: window ({k1_start}, {k1_n}) "
+                         f"outside {pt.m1} rows")
+    batch = x.shape[:-1]
+    k = k1_n * (pt.m2 // 2 + 1)
+    yr = torch.empty(*batch, k, device=x.device, dtype=torch.float32)
+    yi = torch.empty_like(yr)
+    fn = _build.function("fft_half", "folve_fft_real_half_rows", [
+        _build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
+        _build.I, _build.I, _build.I, _build.I, _build.P])
+    fft_real_half_rows.launches += 1
+    _build.check(fn(_build.ptr(x), _build.ptr(yr), _build.ptr(yi),
+                    _build.ptr(pt.packed), math.prod(batch), x.shape[-1],
+                    pt.m1, pt.m2, k1_start, k1_n, _build.stream_of(x)),
+                 "fft_real_half_rows")
+    return yr, yi
+
+
+fft_real_half_rows.launches = 0

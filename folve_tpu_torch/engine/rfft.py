@@ -169,17 +169,41 @@ def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, *ops)
 
 
+def _rows(mat: torch.Tensor, start: int, nrows: int, axis: int = 0):
+    """``nrows`` rows of ``mat`` along ``axis`` from ``start``: a
+    frequency shard's k1 window of a plan factor."""
+    return mat.narrow(axis, start, nrows)
+
+
+def _window(m1: int, k1_start, k1_n) -> tuple[int, int]:
+    """(start, rows) of a k1-row window of the [m1, .] grid; the whole
+    grid when ``k1_start`` is None."""
+    if k1_start is None:
+        return 0, m1
+    k1_start, k1_n = int(k1_start), int(k1_n)
+    if k1_n < 1 or k1_start < 0 or k1_start + k1_n > m1:
+        raise ValueError(f"k1 window ({k1_start}, {k1_n}) outside {m1} rows")
+    return k1_start, k1_n
+
+
 def fft_real(
-    x: torch.Tensor, n: int, half: bool = False
+    x: torch.Tensor, n: int, half: bool = False, *, k1_start=None,
+    k1_n: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward DFT of a real signal, permuted-layout output.
 
     ``x``: float ``[..., L]`` with L <= n (zero-padded to n).  Returns
     ``(re, im)`` each ``[..., n]`` in permuted bin order, or
     ``[..., half_bins(n)]`` when ``half`` (stage 2 computes only the
-    k2 <= M2/2 columns)."""
+    k2 <= M2/2 columns).
+
+    ``k1_start``/``k1_n`` restrict the output to a window of k1 rows of
+    the permuted [k1, k2] grid (a frequency shard computes only its own
+    rows; the forward direction needs no communication).  The output is
+    then ``[..., k1_n * cols]``."""
     pt = plan_tensors(n, x.device)
     m1, m2 = pt.m1, pt.m2
+    ks, kn = _window(m1, k1_start, k1_n)
     length = x.shape[-1]
     # Zero-padding awareness: a signal of L < n samples fills only the
     # first ceil(L/m2) rows, so stage 1 contracts over those rows alone.
@@ -188,50 +212,102 @@ def fft_real(
     if length < rows * m2:
         x = torch.nn.functional.pad(x, (0, rows * m2 - length))
     a = x.reshape(*x.shape[:-1], rows, m2)
-    s1r = _einsum("kn,...nm->...km", pt.f1_re[:, :rows], a)
-    s1i = _einsum("kn,...nm->...km", pt.f1_im[:, :rows], a)
-    t_r = s1r * pt.tw_re - s1i * pt.tw_im
-    t_i = s1r * pt.tw_im + s1i * pt.tw_re
+    s1r = _einsum("kn,...nm->...km", _rows(pt.f1_re[:, :rows], ks, kn), a)
+    s1i = _einsum("kn,...nm->...km", _rows(pt.f1_im[:, :rows], ks, kn), a)
+    tr, ti = _rows(pt.tw_re, ks, kn), _rows(pt.tw_im, ks, kn)
+    t_r = s1r * tr - s1i * ti
+    t_i = s1r * ti + s1i * tr
     cols = m2 // 2 + 1 if half else m2
     f2r, f2i = pt.f2_re[:, :cols], pt.f2_im[:, :cols]
     xr = _einsum("...km,ml->...kl", t_r, f2r) - _einsum("...km,ml->...kl", t_i, f2i)
     xi = _einsum("...km,ml->...kl", t_r, f2i) + _einsum("...km,ml->...kl", t_i, f2r)
     batch = x.shape[:-1]
-    return xr.reshape(*batch, m1 * cols), xi.reshape(*batch, m1 * cols)
+    return xr.reshape(*batch, kn * cols), xi.reshape(*batch, kn * cols)
 
 
-def _inverse_stages(pt: PlanTensors, ar, ai, f2r, f2i) -> torch.Tensor:
+def _inverse_stages(pt: PlanTensors, ar, ai, f2r, f2i, ks: int,
+                    kn: int) -> torch.Tensor:
     """Stage 1 against conj(F2) (``f2r``/``f2i`` [M2, cols]), the
-    conjugate twiddle, then stage 2 against conj(F1); real part only."""
+    conjugate twiddle of rows ``[ks, ks+kn)``, then stage 2 against those
+    columns of conj(F1); real part only."""
     ur = _einsum("...kl,ml->...km", ar, f2r) + _einsum("...kl,ml->...km", ai, f2i)
     ui = _einsum("...kl,ml->...km", ai, f2r) - _einsum("...kl,ml->...km", ar, f2i)
-    vr = ur * pt.tw_re + ui * pt.tw_im
-    vi = ui * pt.tw_re - ur * pt.tw_im
-    return (_einsum("nk,...km->...nm", pt.f1_re, vr)
-            + _einsum("nk,...km->...nm", pt.f1_im, vi))
+    tr, ti = _rows(pt.tw_re, ks, kn), _rows(pt.tw_im, ks, kn)
+    vr = ur * tr + ui * ti
+    vi = ui * tr - ur * ti
+    return (_einsum("nk,...km->...nm", _rows(pt.f1_re, ks, kn, axis=1), vr)
+            + _einsum("nk,...km->...nm", _rows(pt.f1_im, ks, kn, axis=1), vi))
 
 
-def ifft_to_real(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
+def ifft_to_real(xr: torch.Tensor, xi: torch.Tensor, n: int, *,
+                 k1_start=None, k1_n: int | None = None) -> torch.Tensor:
     """Inverse DFT of full permuted-layout spectra ``[..., n]``; returns
-    the real part, float32 ``[..., n]``."""
+    the real part, float32 ``[..., n]``.
+
+    With ``k1_start``/``k1_n`` the inputs hold one window of k1 rows
+    (``[..., k1_n * M2]``) and the result is that window's partial
+    stage-2 sum: the partials of windows that tile the M1 rows add up to
+    the inverse (the JAX package's ``psum`` over the freq axis; here the
+    caller sums)."""
     pt = plan_tensors(n, xr.device)
-    m1, m2 = pt.m1, pt.m2
-    ar = xr.reshape(*xr.shape[:-1], m1, m2)
-    ai = xi.reshape(*xi.shape[:-1], m1, m2)
-    out = _inverse_stages(pt, ar, ai, pt.f2_re, pt.f2_im)
+    ks, kn = _window(pt.m1, k1_start, k1_n)
+    ar = xr.reshape(*xr.shape[:-1], kn, pt.m2)
+    ai = xi.reshape(*xi.shape[:-1], kn, pt.m2)
+    out = _inverse_stages(pt, ar, ai, pt.f2_re, pt.f2_im, ks, kn)
     return (out / n).reshape(*xr.shape[:-1], n)
 
 
-def ifft_from_half(xr: torch.Tensor, xi: torch.Tensor, n: int) -> torch.Tensor:
+def ifft_from_half(xr: torch.Tensor, xi: torch.Tensor, n: int, *,
+                   k1_start=None, k1_n: int | None = None) -> torch.Tensor:
     """Inverse DFT of a *real* signal straight from the half-spectrum
     rectangle ``[..., half_bins(n)]``: the multiplicity weights and 1/n
     fold into one per-bin factor; stage 1 contracts only the stored
-    columns.  Returns float32 ``[..., n]``."""
+    columns.  Returns float32 ``[..., n]``.
+
+    The weights are per (k1, k2), so a k1-row window (``[..., k1_n *
+    cols]`` inputs) slices them locally and returns its partial sum, as
+    :func:`ifft_to_real` does."""
     pt = plan_tensors(n, xr.device)
     m1, m2 = pt.m1, pt.m2
+    ks, kn = _window(m1, k1_start, k1_n)
     cols = m2 // 2 + 1
     batch = xr.shape[:-1]
-    ar = xr.reshape(*batch, m1, cols) * pt.wn
-    ai = xi.reshape(*batch, m1, cols) * pt.wn
-    out = _inverse_stages(pt, ar, ai, pt.f2_re[:, :cols], pt.f2_im[:, :cols])
+    wn = _rows(pt.wn, ks, kn)
+    ar = xr.reshape(*batch, kn, cols) * wn
+    ai = xi.reshape(*batch, kn, cols) * wn
+    out = _inverse_stages(pt, ar, ai, pt.f2_re[:, :cols], pt.f2_im[:, :cols],
+                          ks, kn)
     return out.reshape(*batch, n)
+
+
+def reconstruct_full(xr: torch.Tensor, xi: torch.Tensor,
+                     n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rebuild the full permuted spectrum of a *real* signal from its
+    half-spectrum rectangle via conjugate symmetry.
+
+    With bin k = k1 + M1*k2 and X[N-k] = conj(X[k]), the missing
+    columns k2 in [M2/2+1, M2) satisfy
+      X[k1, k2] = conj(X[M1-k1, M2-1-k2])   for k1 > 0,
+      X[0,  k2] = conj(X[0,     M2-k2]),
+    both of which live inside the stored k2 <= M2/2 rectangle."""
+    plan = get_plan(n)
+    m1, m2 = plan.m1, plan.m2
+    cols = m2 // 2 + 1
+    take = m2 - cols  # number of missing columns
+    batch = xr.shape[:-1]
+    ar = xr.reshape(*batch, m1, cols)
+    ai = xi.reshape(*batch, m1, cols)
+    # Rows k1 -> (m1-k1) % m1 == roll(flip(rows), 1).
+    mr = torch.roll(torch.flip(ar, dims=(-2,)), 1, dims=-2)
+    mi = torch.roll(torch.flip(ai, dims=(-2,)), 1, dims=-2)
+    # Columns for k1>0 rows: k2' = m2-1-k2 in [0, take-1] -> slice+flip.
+    rec_r = torch.flip(mr[..., :take], dims=(-1,))
+    rec_i = -torch.flip(mi[..., :take], dims=(-1,))
+    # Row k1 = 0 mirrors within itself with k2' = m2-k2 in [1, take].
+    row0_r = torch.flip(ar[..., 0:1, 1 : take + 1], dims=(-1,))
+    row0_i = -torch.flip(ai[..., 0:1, 1 : take + 1], dims=(-1,))
+    rec_r = torch.cat([row0_r, rec_r[..., 1:, :]], dim=-2)
+    rec_i = torch.cat([row0_i, rec_i[..., 1:, :]], dim=-2)
+    fr = torch.cat([ar, rec_r], dim=-1)
+    fi = torch.cat([ai, rec_i], dim=-1)
+    return fr.reshape(*batch, n), fi.reshape(*batch, n)

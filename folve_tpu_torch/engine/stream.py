@@ -12,8 +12,14 @@ spectra and one ``fragm``-frame tail.
 Every step here takes an explicit stream batch (the JAX package's
 ``vmap``).  Routing follows the tensors' device: on CUDA the kernels of
 :mod:`folve_tpu_torch.engine.kernels` run, on the CPU their plain
-versions.  Layouts are the JAX package's: spectra are (re, im) float32
-planes in the permuted bin layout of :mod:`folve_tpu_torch.engine.rfft`.
+versions; the MAC's kernel follows the shapes (:func:`mac_route`).
+Layouts are the JAX package's: spectra are (re, im) float32 planes in the
+permuted bin layout of :mod:`folve_tpu_torch.engine.rfft`.
+
+The freq-sharded step is split around its one reduction:
+:func:`shard_partial_step` runs on each shard's k1 rows and
+:func:`finish_sharded_step` on the summed partials
+(:mod:`folve_tpu_torch.parallel.serving` runs both and the sum).
 """
 
 from __future__ import annotations
@@ -32,10 +38,26 @@ from folve_tpu_torch.engine.kernels.conv_step import (
     fused_supported,
     permute_h_for_fused,
 )
-from folve_tpu_torch.engine.kernels.fdl_mac import fdl_mac_plain, fdl_mac_split
-from folve_tpu_torch.engine.kernels.fft_half import fft_real_half
-from folve_tpu_torch.engine.kernels.ifft_half import ifft_ola
-from folve_tpu_torch.engine.rfft import fft_real, half_bins, ifft_to_real
+from folve_tpu_torch.engine.kernels.fdl_mac import (
+    fdl_mac,
+    fdl_mac_einsum,
+    fdl_mac_split,
+)
+from folve_tpu_torch.engine.kernels.fft_half import (
+    fft_real_half,
+    fft_real_half_rows,
+)
+from folve_tpu_torch.engine.kernels.ifft_half import ifft_ola, ifft_partial_rows
+from folve_tpu_torch.engine.rfft import (
+    fft_real,
+    get_plan,
+    half_bins,
+    ifft_to_real,
+)
+
+# Partitions the split MAC kernel takes below T (the JAX package's
+# _UNROLL_LIMIT): past it the window kernel runs.
+SPLIT_LIMIT = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,60 +115,152 @@ def _n_valid(n_valid, s: int, default: int, device) -> torch.Tensor:
     return torch.as_tensor(n_valid, device=device).to(torch.int64).expand(s)
 
 
+def mac_route(p: int, cin: int, cout: int, t: int) -> str:
+    """Which MAC runs for these shapes, mirroring the JAX package's
+    ``chunk_step``: ``"einsum"`` past 16 channel pairs (XLA there, no
+    kernel), ``"split"`` (:func:`fdl_mac_split`) for P >= 2 with
+    min(P, T) <= 32, else ``"window"`` (:func:`fdl_mac` over the
+    concatenated [T+P-1] window: P = 1, or a deep FDL)."""
+    if cin * cout > 16:
+        return "einsum"
+    if p >= 2 and min(p, t) <= SPLIT_LIMIT:
+        return "split"
+    return "window"
+
+
+def _mac(h_spec: torch.Tensor, hist_re: torch.Tensor, hist_im: torch.Tensor,
+         xr: torch.Tensor, xi: torch.Tensor):
+    """FDL MAC of the new spectra ``xr``/``xi`` [S, T, Cin, K] against
+    all partitions; returns ``(y_re, y_im, hist_re', hist_im')``."""
+    p, cin, cout = h_spec.shape[-5:-2]
+    t = xr.shape[1]
+    route = mac_route(p, cin, cout, t)
+    if route == "split":
+        y_re, y_im = fdl_mac_split(h_spec, hist_re, hist_im, xr, xi)
+        if t >= p - 1:
+            return y_re, y_im, xr[:, t - (p - 1):], xi[:, t - (p - 1):]
+        return (y_re, y_im, torch.cat([hist_re[:, t:], xr], dim=1),
+                torch.cat([hist_im[:, t:], xi], dim=1))
+    # P = 1: the window is the new spectra alone (no empty hist joins it).
+    xall_re = torch.cat([hist_re, xr], dim=1) if p > 1 else xr
+    xall_im = torch.cat([hist_im, xi], dim=1) if p > 1 else xi
+    mac = fdl_mac if route == "window" else fdl_mac_einsum
+    y_re, y_im = mac(h_spec, xall_re, xall_im, t)
+    return y_re, y_im, xall_re[:, t:], xall_im[:, t:]
+
+
+def _check_x(h_spec: torch.Tensor, fragm: int, x: torch.Tensor) -> None:
+    cin = h_spec.shape[-4]
+    if x.dim() != 4 or x.shape[2] != cin or x.shape[3] != fragm:
+        raise ValueError(
+            f"x must be [S, T, {cin}, {fragm}], got {tuple(x.shape)}")
+
+
+def _overlap_add(y2: torch.Tensor, tail: torch.Tensor):
+    """Heads of the length-2B blocks ``y2`` [S, T, Cout, 2B] plus the
+    previous block's tail ``tail`` [S, Cout, B]; returns ``(y,
+    new_tail)``."""
+    b = tail.shape[-1]
+    heads, tails = y2[..., :b], y2[..., b:]
+    carry_in = torch.cat([tail[:, None], tails[:, :-1]], dim=1)
+    return heads + carry_in, tails[:, -1]
+
+
+def _monitor(y: torch.Tensor, max_abs: torch.Tensor,
+             n_valid: torch.Tensor) -> torch.Tensor:
+    """The clipping monitor: running max |y| over valid frames only."""
+    t, b = y.shape[1], y.shape[3]
+    frame = (torch.arange(t, device=y.device)[:, None] * b
+             + torch.arange(b, device=y.device)[None, :])
+    valid = frame[None, :, None, :] < n_valid.to(y.device)[:, None, None, None]
+    blk = torch.where(valid, y.abs(), torch.zeros((), device=y.device))
+    return torch.maximum(max_abs, blk.amax(dim=(1, 2, 3)))
+
+
 def _batched_step(h_spec: torch.Tensor, fragm: int, states: StreamState,
                   x: torch.Tensor, n_valid: torch.Tensor):
     """The engine step over a stream batch.  ``h_spec``: shared
     ``[P, Cin, Cout, 2, K]`` or per-stream ``[S, P, ...]``; ``states``
     batched; ``x``: ``[S, T, Cin, fragm]``; ``n_valid``: ``[S]``."""
-    p, cin, cout, _, k = h_spec.shape[-5:]
-    b = fragm
-    n = 2 * b
-    s, t = x.shape[0], x.shape[1]
-    if x.shape[2] != cin or x.shape[3] != b:
-        raise ValueError(f"x must be [S, T, {cin}, {b}], got {tuple(x.shape)}")
+    k = h_spec.shape[-1]
+    n = 2 * fragm
+    _check_x(h_spec, fragm, x)
     half = k == half_bins(n) and k != n
 
     # 1. Block spectra of each block zero-padded to 2*fragm.
-    if half:
-        xr, xi = fft_real_half(x, n)
-    else:
-        xr, xi = fft_real(x, n)
-
-    # 2. FDL MAC against all partitions.  The split kernel reads history
-    # and new spectra as two inputs; P = 1 and wide channel counts run
-    # the plain MAC over the concatenated window.
-    if p >= 2 and cin * cout <= 16:
-        y_re, y_im = fdl_mac_split(h_spec, states.hist_re, states.hist_im,
-                                   xr, xi)
-        if t >= p - 1:
-            new_re, new_im = xr[:, t - (p - 1):], xi[:, t - (p - 1):]
-        else:
-            new_re = torch.cat([states.hist_re[:, t:], xr], dim=1)
-            new_im = torch.cat([states.hist_im[:, t:], xi], dim=1)
-    else:
-        xall_re = torch.cat([states.hist_re, xr], dim=1)
-        xall_im = torch.cat([states.hist_im, xi], dim=1)
-        y_re, y_im = fdl_mac_plain(h_spec, xall_re, xall_im, t)
-        new_re, new_im = xall_re[:, t:], xall_im[:, t:]
-
+    xr, xi = fft_real_half(x, n) if half else fft_real(x, n)
+    # 2. FDL MAC against all partitions (route: mac_route).
+    y_re, y_im, new_re, new_im = _mac(h_spec, states.hist_re, states.hist_im,
+                                      xr, xi)
     # 3. Inverse FFT + overlap-add between consecutive blocks.
     if half:
         y, new_tail = ifft_ola(y_re, y_im, states.tail, n)
     else:
-        y2 = ifft_to_real(y_re, y_im, n)
-        heads, tails = y2[..., :b], y2[..., b:]
-        carry_in = torch.cat([states.tail[:, None], tails[:, :-1]], dim=1)
-        y = heads + carry_in
-        new_tail = tails[:, -1]
-
+        y, new_tail = _overlap_add(ifft_to_real(y_re, y_im, n), states.tail)
     # 4. Clipping monitor over valid frames only.
-    frame = (torch.arange(t, device=x.device)[:, None] * b
-             + torch.arange(b, device=x.device)[None, :])
-    valid = frame[None, :, None, :] < n_valid[:, None, None, None]
-    blk = torch.where(valid, y.abs(), torch.zeros((), device=y.device))
-    max_abs = torch.maximum(states.max_abs, blk.amax(dim=(1, 2, 3)))
+    max_abs = _monitor(y, states.max_abs, n_valid)
     return StreamState(new_re.contiguous(), new_im.contiguous(),
                        new_tail.contiguous(), max_abs), y
+
+
+def _k1_window(fragm: int, bins: int, freq_shards: int,
+               shard: int) -> tuple[int, int, bool]:
+    """``(k1_start, k1_n, half)`` of frequency shard ``shard`` of
+    ``freq_shards`` for a bank of ``bins`` local bins at block length
+    ``fragm``: the shard holds k1 rows ``[k1_start, k1_start + k1_n)``
+    of the permuted spectrum."""
+    n = 2 * fragm
+    plan = get_plan(n)
+    k_global = bins * freq_shards
+    half = k_global == half_bins(n) and k_global != n
+    if plan.m1 % freq_shards:
+        raise ValueError(
+            f"M1={plan.m1} rows not divisible by freq_shards={freq_shards}")
+    k1_n = plan.m1 // freq_shards
+    cols = plan.m2 // 2 + 1 if half else plan.m2
+    if bins != k1_n * cols:
+        raise ValueError(
+            f"local bins {bins} != k1_n*cols = {k1_n}*{cols} (bad shard layout)")
+    return shard * k1_n, k1_n, half
+
+
+def shard_partial_step(h_spec: torch.Tensor, fragm: int,
+                       hist_re: torch.Tensor, hist_im: torch.Tensor,
+                       x: torch.Tensor, freq_shards: int, shard: int):
+    """One frequency shard's part of the engine step (the JAX package's
+    ``chunk_step`` with ``freq_axis``, up to its ``psum``).
+
+    ``h_spec`` and ``hist_re``/``hist_im`` hold only this shard's k1 rows
+    of the permuted spectrum (``K_local = K / freq_shards`` bins, in the
+    shapes of :func:`_batched_step`); ``x`` [S, T, Cin, fragm] is the
+    whole input.  The forward transform computes the local rows, the MAC
+    is elementwise in bins, and the inverse stops at this shard's partial
+    stage-2 sum.  Returns ``(partial, hist_re', hist_im')`` with
+    ``partial`` [S, T, Cout, 2*fragm]: the sum of all shards' partials
+    (:func:`finish_sharded_step`) is the blocks' inverse transform."""
+    n = 2 * fragm
+    _check_x(h_spec, fragm, x)
+    ks, kn, half = _k1_window(fragm, h_spec.shape[-1], freq_shards, shard)
+    if half:
+        xr, xi = fft_real_half_rows(x, n, ks, kn)
+    else:
+        xr, xi = fft_real(x, n, k1_start=ks, k1_n=kn)
+    y_re, y_im, new_re, new_im = _mac(h_spec, hist_re, hist_im, xr, xi)
+    if half:
+        partial = ifft_partial_rows(y_re, y_im, n, ks, kn)
+    else:
+        partial = ifft_to_real(y_re, y_im, n, k1_start=ks, k1_n=kn)
+    return partial, new_re.contiguous(), new_im.contiguous()
+
+
+def finish_sharded_step(y2: torch.Tensor, tail: torch.Tensor,
+                        max_abs: torch.Tensor, n_valid: torch.Tensor):
+    """The rest of a frequency-sharded step, once the shards' partials
+    are summed into ``y2`` [S, T, Cout, 2*fragm]: overlap-add with
+    ``tail`` [S, Cout, fragm] and the clipping monitor.  Returns
+    ``(tail', max_abs', y)``."""
+    y, new_tail = _overlap_add(y2, tail)
+    return new_tail.contiguous(), _monitor(y, max_abs, n_valid), y
 
 
 def chunk_step(bank: FilterBank, state: StreamState, x, n_valid=None):

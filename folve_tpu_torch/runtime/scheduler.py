@@ -14,6 +14,12 @@ as rows of a :class:`FusedServingCarry`, referenced by
 :class:`FusedStateRef` and gathered with ``index_select``.  The kernel
 writes new state buffers, so replicated padding rows never write into
 job 0's state.
+
+With a ``mesh`` (:func:`folve_tpu_torch.parallel.make_serving_mesh`),
+batches whose banks split into the mesh's freq shards run the sharded
+serving step instead; their state stays on the mesh's devices as a
+:class:`_SlotStates` batch referenced by :class:`ShardedStateRef`, and
+the next step gathers its rows there.
 """
 
 from __future__ import annotations
@@ -44,10 +50,18 @@ from folve_tpu_torch.engine.stream import (
     stage_x_for_fused,
     unstack_state,
 )
+from folve_tpu_torch.parallel.serving import (
+    SPEC_H,
+    SPEC_H_SHARED,
+    ShardedArray,
+    check_freq_shardable,
+    make_sharded_serving_step,
+)
 from folve_tpu_torch.runtime.processor import _quantize
 from folve_tpu_torch.utils.profiling import LatencyStats
 
 _PLACED_CAP = 16
+_STATE_FIELDS = ("hist_re", "hist_im", "tail", "max_abs")
 
 
 def _signature(bank: FilterBank) -> Tuple:
@@ -115,9 +129,52 @@ class FusedStateRef:
         return self.parent.carry.max_abs[self.idx]
 
 
+class _SlotStates:
+    """One sharded step's output states (:class:`ShardedArray` objects), kept
+    on the mesh's devices."""
+
+    __slots__ = ("hist_re", "hist_im", "tail", "max_abs", "__weakref__")
+
+    def __init__(self, hist_re, hist_im, tail, max_abs):
+        self.hist_re = hist_re
+        self.hist_im = hist_im
+        self.tail = tail
+        self.max_abs = max_abs
+
+
+class ShardedStateRef:
+    """Duck-typed :class:`StreamState` view of row ``idx`` of a
+    :class:`_SlotStates` batch.  The next sharded step gathers the row on
+    the devices; field access assembles it on one device (only path
+    switches, resets and superseded batches ever do)."""
+
+    __slots__ = ("parent", "idx")
+
+    def __init__(self, parent: _SlotStates, idx: int):
+        self.parent = parent
+        self.idx = idx
+
+    @property
+    def hist_re(self):
+        return self.parent.hist_re.row(self.idx)
+
+    @property
+    def hist_im(self):
+        return self.parent.hist_im.row(self.idx)
+
+    @property
+    def tail(self):
+        return self.parent.tail.row(self.idx)
+
+    @property
+    def max_abs(self):
+        return self.parent.max_abs.row(self.idx)
+
+
 def _as_plain_state(state):
-    """Materialize a FusedStateRef to a canonical StreamState."""
-    if isinstance(state, FusedStateRef):
+    """Materialize a FusedStateRef or ShardedStateRef to a canonical
+    StreamState."""
+    if isinstance(state, (FusedStateRef, ShardedStateRef)):
         return StreamState(state.hist_re, state.hist_im, state.tail,
                            state.max_abs)
     return state
@@ -137,9 +194,17 @@ def _stop_all_schedulers() -> None:
 
 class DeviceScheduler:
     def __init__(self, max_batch: int = 16, window_s: float = 0.002,
-                 device="cuda"):
-        """Batches jobs for banks placed on ``device``."""
+                 device="cuda", mesh=None):
+        """Batches jobs for banks placed on ``device``.  ``mesh``: an
+        optional :class:`folve_tpu_torch.parallel.ServingMesh`; batches
+        whose banks split into its freq shards run the sharded serving
+        step on it, the rest the single-device step."""
         self.device = resolve_device(device)
+        self._mesh = mesh
+        self._sharded_steps: Dict[Tuple, object] = {}
+        # Live sharded state batches per bank signature (guarded by
+        # _mutex), as weak references.
+        self._parents: Dict[Tuple, list] = {}
         _live_schedulers.add(self)
         self._max_batch = max_batch
         self._window_s = window_s
@@ -164,7 +229,9 @@ class DeviceScheduler:
         self.batched_jobs = 0
         self.fused_steps = 0  # fused pre-shaped steps
         self.fused_fast_steps = 0  # ... with a device-resident carry gather
-        self.materialized = 0  # carry rows forced back to plain states
+        self.sharded_steps = 0  # steps on the mesh
+        self.sharded_fast_steps = 0  # ... with the state gathered on the mesh
+        self.materialized = 0  # carry or slot rows forced back to plain states
         self.coalesce_waits = 0  # times the window was actually paid
         self.total_step_s = 0.0
         self.last_step_s = 0.0
@@ -207,12 +274,14 @@ class DeviceScheduler:
         if bank.device != self.device:
             raise ValueError(
                 f"bank on {bank.device}, scheduler on {self.device}")
-        if isinstance(state, FusedStateRef):
+        if isinstance(state, (FusedStateRef, ShardedStateRef)):
+            parents = (self._fused_parents if isinstance(state, FusedStateRef)
+                       else self._parents)
             with self._mutex:
-                refs = self._fused_parents.get(_signature(bank), ())
+                refs = parents.get(_signature(bank), ())
                 live = any(r() is state.parent for r in refs)
             if not live:
-                # Superseded carry batch: materialize this row so the old
+                # Superseded batch: materialize this row so the old
                 # batch's device memory is released.
                 self.materialized += 1
                 state = _as_plain_state(state)
@@ -324,8 +393,19 @@ class DeviceScheduler:
         # placed-stack cache regardless of arrival order.
         jobs = sorted(jobs, key=lambda j: id(j.bank.h_spec))
         bank0 = jobs[0].bank
+        mesh = self._mesh
+        if mesh is not None and not check_freq_shardable(
+                bank0.fragm, bank0.bins, mesh.shape["freq"]):
+            mesh = None  # bank too small for this freq split
         padded = _bucket(n, self._max_batch)
+        if mesh is not None:
+            # The stream axis splits the batch: pad to a multiple of it.
+            rows = mesh.shape["stream"]
+            padded = -(-max(padded, rows) // rows) * rows
         all_jobs = jobs + [jobs[0]] * (padded - n)
+        if mesh is not None:
+            self._execute_sharded(mesh, jobs, all_jobs)
+            return
         t_blocks = np.shape(jobs[0].x)[0]
         shared = all(j.bank.h_spec is bank0.h_spec for j in all_jobs)
         if shared and padded >= 2 and fused_serving_supported(bank0, t_blocks):
@@ -399,3 +479,73 @@ class DeviceScheduler:
             refs.append(weakref.ref(new_parent))
         for i, job in enumerate(jobs):
             job.future.set_result((FusedStateRef(new_parent, i), y[i]))
+
+    def _placed_bank(self, mesh, h_spec):
+        """Shared-bank spectra laid out over the mesh, cached so repeated
+        steps do not move the filter again."""
+        return self._place(("sharded", id(h_spec)), (h_spec,),
+                           lambda: ShardedArray.place(mesh, h_spec,
+                                                      SPEC_H_SHARED))
+
+    def _placed_bank_stack(self, mesh, specs):
+        """Per-stream filter stack laid out over the mesh, cached by the
+        identities of its sources."""
+        specs = tuple(specs)
+        return self._place(("sharded",) + tuple(id(h) for h in specs), specs,
+                           lambda: ShardedArray.place(
+                               mesh, torch.stack([h.to(self.device)
+                                                  for h in specs]), SPEC_H))
+
+    def _execute_sharded(self, mesh, jobs: List[_Job],
+                         all_jobs: List[_Job]) -> None:
+        """One batch through the sharded serving step.
+
+        Steady-state streams carry :class:`ShardedStateRef` views from the
+        previous step, so their state stays on the mesh: the ``gather``
+        step collects the referenced rows on the devices and only the
+        audio leaves them.  Fresh or mixed batches stack their states and
+        lay them out over the mesh once."""
+        bank0 = all_jobs[0].bank
+        shared = all(j.bank.h_spec is bank0.h_spec for j in all_jobs)
+        states = [j.state for j in all_jobs]
+        parent = states[0].parent if isinstance(states[0], ShardedStateRef) else None
+        fast = parent is not None and all(
+            isinstance(s, ShardedStateRef) and s.parent is parent for s in states
+        )
+        key = (bank0.fragm, shared, fast)
+        step = self._sharded_steps.get(key)
+        if step is None:
+            step = make_sharded_serving_step(mesh, bank0.fragm,
+                                             shared_bank=shared, gather=fast)
+            self._sharded_steps[key] = step
+        x = np.stack([np.asarray(j.x, dtype=np.float32) for j in all_jobs])
+        n_valid = np.asarray([int(j.n_valid) for j in all_jobs], dtype=np.int64)
+        if shared:
+            h_spec = self._placed_bank(mesh, bank0.h_spec)
+        else:
+            h_spec = self._placed_bank_stack(mesh, [j.bank.h_spec for j in all_jobs])
+        t0 = time.perf_counter()
+        if fast:
+            out = step(h_spec, parent.hist_re, parent.hist_im, parent.tail,
+                       parent.max_abs, x, n_valid, [s.idx for s in states])
+            self.sharded_fast_steps += 1
+        else:
+            st = stack_states([
+                StreamState(*(getattr(s, f).to(self.device) for f in _STATE_FIELDS))
+                for s in states])
+            out = step(h_spec, st.hist_re, st.hist_im, st.tail, st.max_abs,
+                       x, n_valid)
+        new_re, new_im, new_tail, new_max, y = out
+        y_host = y.gather("cpu")  # the audio leaves; the states stay
+        self._record(t0, len(jobs))
+        self.sharded_steps += 1
+        new_parent = _SlotStates(new_re, new_im, new_tail, new_max)
+        with self._mutex:
+            # Several batches of one signature may be live at once (queue
+            # overflow splits, edge-block chunk shapes); weak references
+            # let a batch die when no stream's state refers to it.
+            refs = self._parents.setdefault(_signature(bank0), [])
+            refs[:] = [r for r in refs if r() is not None][-7:]
+            refs.append(weakref.ref(new_parent))
+        for i, job in enumerate(jobs):
+            job.future.set_result((ShardedStateRef(new_parent, i), y_host[i]))

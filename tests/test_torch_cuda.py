@@ -13,9 +13,26 @@ import torch
 
 from folve_tpu_torch.engine.filter_bank import compile_filter_bank
 from folve_tpu_torch.engine.kernels import conv_step as tcs
-from folve_tpu_torch.engine.kernels.fdl_mac import fdl_mac_split, fdl_mac_split_plain
-from folve_tpu_torch.engine.kernels.fft_half import fft_real_half, fft_real_half_plain
-from folve_tpu_torch.engine.kernels.ifft_half import ifft_ola, ifft_ola_plain
+from folve_tpu_torch.engine.kernels.fdl_mac import (
+    fdl_mac,
+    fdl_mac_plain,
+    fdl_mac_split,
+    fdl_mac_split_plain,
+)
+from folve_tpu_torch.engine.kernels.fft_half import (
+    fft_real_half,
+    fft_real_half_plain,
+    fft_real_half_rows,
+    fft_real_half_rows_plain,
+)
+from folve_tpu_torch.engine.kernels.ifft_half import (
+    ifft_from_half,
+    ifft_from_half_plain,
+    ifft_ola,
+    ifft_ola_plain,
+    ifft_partial_rows,
+    ifft_partial_rows_plain,
+)
 from folve_tpu_torch.engine.rfft import half_bins
 
 
@@ -118,3 +135,184 @@ def test_engine_on_card_matches_cpu(cuda, rng, p, t, fragm):
         outs[d] = ys
     for a, b in zip(outs["cpu"], outs[cuda]):
         assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,t,s,shared", [
+    (1, 4, 2, True), (1, 8, 3, False), (40, 36, 1, True), (128, 64, 1, False),
+])
+def test_window_mac_matches_plain_on_card(cuda, rng, p, t, s, shared):
+    k = half_bins(16384)
+    cu = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    h = cu(p, 2, 2, 2, k) if shared else cu(s, p, 2, 2, 2, k)
+    xr, xi = cu(s, t + p - 1, 2, k), cu(s, t + p - 1, 2, k)
+    fdl_mac.launches = 0
+    got = fdl_mac(h, xr, xi, t)
+    assert fdl_mac.launches == 1
+    assert _rel_err(got, fdl_mac_plain(h, xr, xi, t)) < 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fragm,freq", [(64, 2), (1024, 4), (8192, 4)])
+def test_row_window_ffts_match_plain_on_card(cuda, rng, fragm, freq):
+    n = 2 * fragm
+    from folve_tpu_torch.engine.rfft import get_plan
+
+    m1, cols = get_plan(n).m1, get_plan(n).m2 // 2 + 1
+    kn = m1 // freq
+    cu = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    x = cu(2, 3, fragm)
+    yr, yi = cu(2, 3, m1 * cols), cu(2, 3, m1 * cols)
+    total = None
+    for f in range(freq):
+        ks = f * kn
+        assert _rel_err(fft_real_half_rows(x, n, ks, kn),
+                        fft_real_half_rows_plain(x, n, ks, kn)) < 1e-5
+        wr = yr.reshape(2, 3, m1, cols)[:, :, ks:ks + kn].reshape(2, 3, -1)
+        wi = yi.reshape(2, 3, m1, cols)[:, :, ks:ks + kn].reshape(2, 3, -1)
+        part = ifft_partial_rows(wr, wi, n, ks, kn)
+        assert _rel_err(part, ifft_partial_rows_plain(wr, wi, n, ks, kn)) < 1e-5
+        total = part if total is None else total + part
+    whole = ifft_from_half_plain(yr, yi, n)
+    assert _rel_err(total, whole) < 1e-5
+    assert _rel_err(ifft_from_half(yr, yi, n), whole) < 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,t", [(1, 3), (40, 36)])
+def test_window_route_on_card_matches_cpu(cuda, rng, p, t):
+    """chunk_step through the window MAC on the card (P = 1 and a deep
+    FDL) against the plain path on the CPU, and no plain MAC on CUDA."""
+    from folve_tpu_torch.engine import stream as ts
+
+    fragm = 64
+    ir = rng.standard_normal((2, 2, p * fragm - 5)).astype(np.float32)
+    banks = {d: compile_filter_bank(ir, fragm=fragm, device=d) for d in ("cpu", cuda)}
+    x = rng.standard_normal((2, t, 2, fragm)).astype(np.float32)
+    outs = {}
+    fdl_mac.launches = fdl_mac_plain.cuda_calls = 0
+    for d, bank in banks.items():
+        st = ts.init_state(bank, device=d)
+        ys = []
+        for r in range(2):
+            st, y = ts.chunk_step(bank, st, x[r], t * fragm - 3 * r)
+            ys += [y.cpu(), st.tail.cpu(), st.hist_re.cpu()]
+        outs[d] = ys
+    assert fdl_mac.launches == 2 and fdl_mac_plain.cuda_calls == 0
+    for a, b in zip(outs["cpu"], outs[cuda]):
+        assert a.shape == b.shape
+        if a.numel():  # P = 1 carries an empty history
+            assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_card_matches_cpu(cuda, rng):
+    """The freq-sharded step on four shards of one card against the same
+    step on a CPU mesh."""
+    from folve_tpu_torch.parallel.serving import (
+        make_serving_mesh,
+        make_sharded_serving_step,
+        shard_states_and_bank,
+    )
+
+    fragm, p, s, t = 256, 3, 4, 2
+    bank = compile_filter_bank(
+        rng.standard_normal((2, 2, p * fragm)).astype(np.float32), fragm=fragm,
+        device="cpu")
+    k = bank.bins
+    args = (bank.h_spec.numpy(),
+            rng.standard_normal((s, p - 1, 2, k)).astype(np.float32),
+            rng.standard_normal((s, p - 1, 2, k)).astype(np.float32),
+            rng.standard_normal((s, 2, fragm)).astype(np.float32),
+            np.zeros(s, np.float32),
+            rng.standard_normal((s, t, 2, fragm)).astype(np.float32),
+            np.full(s, t * fragm))
+    outs = []
+    fft_real_half_rows.launches = ifft_partial_rows.launches = 0
+    for devs in (["cpu"] * 4, [cuda] * 4):
+        mesh = make_serving_mesh(devices=devs, freq_parallel=4)
+        step = make_sharded_serving_step(mesh, fragm, shared_bank=True)
+        outs.append([a.gather() for a in step(*shard_states_and_bank(
+            mesh, *args, shared_bank=True))])
+    assert fft_real_half_rows.launches == 4 and ifft_partial_rows.launches == 4
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freq", [4, 2])
+def test_sharded_scheduler_across_cards_matches_cpu(cuda, rng, freq):
+    """The sharded step on a mesh of four distinct cards (each shard
+    launched on its own card, the partials moved by peer copies, the
+    state gathered on the cards between steps) through DeviceScheduler,
+    against per-stream chunk_step on the CPU; mixed filters."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    import threading
+
+    from folve_tpu_torch.engine import stream as ts
+    from folve_tpu_torch.parallel.serving import make_serving_mesh
+    from folve_tpu_torch.runtime.scheduler import DeviceScheduler, ShardedStateRef
+
+    fragm, p, s, t = 256, 3, 4, 2
+    irs = rng.standard_normal((2, 2, 2, p * fragm)).astype(np.float32)
+    cpu = [compile_filter_bank(ir, fragm=fragm, device="cpu") for ir in irs]
+    card = [compile_filter_bank(ir, fragm=fragm, device=cuda) for ir in irs]
+    sched = DeviceScheduler(max_batch=s, window_s=0.5, device=cuda,
+                            mesh=make_serving_mesh(4, freq_parallel=freq))
+    states = [ts.init_state(card[i % 2], device=cuda) for i in range(s)]
+    ref = [ts.init_state(cpu[i % 2], device="cpu") for i in range(s)]
+    try:
+        for r in range(3):
+            xs = rng.standard_normal((s, t, 2, fragm)).astype(np.float32)
+            out = [None] * s
+            barrier = threading.Barrier(s)
+
+            def go(i):
+                barrier.wait(timeout=60)
+                out[i] = sched.submit(card[i % 2], states[i], xs[i],
+                                      t * fragm).result(timeout=120)
+
+            threads = [threading.Thread(target=go, args=(i,)) for i in range(s)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=180)
+            assert not any(th.is_alive() for th in threads)
+            for i in range(s):
+                states[i], y = out[i]
+                ref[i], ry = ts.chunk_step(cpu[i % 2], ref[i], xs[i], t * fragm)
+                assert _rel_err(y, ry) < 1e-5
+    finally:
+        sched.stop()
+    assert all(isinstance(st, ShardedStateRef) for st in states)
+    assert sched.sharded_steps == 3 and sched.sharded_fast_steps == 2
+    for st, rs in zip(states, ref):
+        assert _rel_err(st.hist_re.cpu(), rs.hist_re) < 1e-5
+        assert _rel_err(st.tail.cpu(), rs.tail) < 1e-5
+
+
+@pytest.mark.cuda
+def test_default_device_scheduler_takes_default_banks(cuda, rng):
+    """A bare "cuda" names the card the banks' tensors report, so the
+    default DeviceScheduler serves banks compiled with the default
+    device."""
+    from folve_tpu_torch.engine import stream as ts
+    from folve_tpu_torch.engine.device import resolve_device
+    from folve_tpu_torch.runtime.scheduler import DeviceScheduler
+
+    bank = compile_filter_bank(rng.standard_normal((2, 2, 300)).astype(np.float32),
+                               fragm=64)
+    assert resolve_device("cuda") == bank.device
+    sched = DeviceScheduler(window_s=0.01)
+    x = rng.standard_normal((2, 2, 64)).astype(np.float32)
+    try:
+        _, y = sched.submit(bank, ts.init_state(bank), x, 128).result(timeout=120)
+    finally:
+        sched.stop()
+    _, ref = ts.chunk_step(bank, ts.init_state(bank), x, 128)
+    assert _rel_err(y, ref) < 1e-6

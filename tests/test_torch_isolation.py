@@ -40,7 +40,9 @@ def test_every_package_module_was_checked():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     for must in ("folve_tpu_torch/engine/stream.py",
                  "folve_tpu_torch/runtime/scheduler.py",
-                 "folve_tpu_torch/engine/kernels/conv_step.py", "chip_smoke.py"):
+                 "folve_tpu_torch/engine/kernels/conv_step.py",
+                 "folve_tpu_torch/parallel/__init__.py",
+                 "folve_tpu_torch/parallel/serving.py", "chip_smoke.py"):
         assert must in names
 
 
@@ -54,6 +56,7 @@ def test_default_device_entry_points_raise_without_card(no_card, tmp_path):
     from folve_tpu_torch.engine import compile_filter_bank, init_state
     from folve_tpu_torch.entry import entry
     from folve_tpu_torch.filters import compile_config_file
+    from folve_tpu_torch.parallel import make_serving_mesh
     from folve_tpu_torch.runtime import DeviceScheduler, SoundProcessor
 
     ir = np.ones((1, 1, 64), np.float32)
@@ -61,7 +64,7 @@ def test_default_device_entry_points_raise_without_card(no_card, tmp_path):
     cfg.write_text("/convolver/new 1 1 64 64\n/impulse/dirac 1 1 1 0\n")
     bank = compile_filter_bank(ir, device="cpu")
     for call in (lambda: compile_filter_bank(ir), lambda: init_state(bank),
-                 lambda: DeviceScheduler(), entry,
+                 lambda: DeviceScheduler(), entry, make_serving_mesh,
                  lambda: compile_config_file(str(cfg), 44100),
                  lambda: SoundProcessor.create(str(cfg), 44100, 1)):
         with pytest.raises(RuntimeError, match="cuda"):
