@@ -20,6 +20,8 @@ Phases (any failure exits nonzero; no phase's exception is caught):
   sharded      the flagship through DeviceScheduler on a mesh of 4 freq shards
                of the card (row-window FFT kernels), held against the
                single-device split route
+  dryrun       entry.dryrun_multichip(8) with its default device: a mesh of
+               eight entries of the card, held to the engine step
 Every serving phase holds the output to -90 dB against a float64 oracle and
 runs no plain MAC on a CUDA tensor.  Prints the card's name and power limit
 first, each phase's seconds, a "kernels" JSON line before the last line, and
@@ -146,6 +148,31 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed ``replays`` times, so the host's time per launch (the
+    Python wrapper) drops out of the reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm the allocator off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -267,7 +294,10 @@ def phase_kernels(dev, results: dict) -> None:
 
 def mac_case(cu, rng, s: int, p: int, t: int, shared: bool) -> dict:
     """Kernel 5 against its plain version at one shape, with its bound:
-    H, the window and Y each moved once, 8 FLOP per complex term."""
+    H, the window and Y each moved once, 8 FLOP per complex term.  ``ms``
+    is a stream of 200 back-to-back calls, host time per launch included;
+    ``graph_ms`` the same calls replayed from a CUDA graph, device time
+    alone."""
     h = cu(rng.standard_normal(((p,) if shared else (s, p)) + (CIN, COUT, 2, K))
            / np.sqrt(p * CIN))
     xr = cu(rng.standard_normal((s, t + p - 1, CIN, K)))
@@ -278,20 +308,24 @@ def mac_case(cu, rng, s: int, p: int, t: int, shared: bool) -> dict:
                      4.0 * (h.numel() + 2 * xr.numel() + 2 * s * t * COUT * K))
     return dict(shape=dict(S=s, P=p, T=t, Cin=CIN, Cout=COUT, K=K,
                            shared_filter=shared),
-                max_abs_err=err, ms=time_ms(lambda: fdl_mac(h, xr, xi, t), 20),
+                max_abs_err=err, ms=time_ms(lambda: fdl_mac(h, xr, xi, t), 200),
+                graph_ms=graph_ms(lambda: fdl_mac(h, xr, xi, t), 50),
                 plain_ms=time_ms(lambda: fdl_mac_plain(h, xr, xi, t), 3),
                 library_ms=None, bound_ms=bms, bound_by=bby)
 
 
 def kernels_window_mac(cu, rng, results: dict) -> None:
-    # Kernel 5 at serve_short's shape (an 8,192-tap filter: P = 1, the
-    # window is the new spectra) and at the deep phase's (P = 128, T = 64).
+    # Kernel 5 at serve_short's shapes (an 8,192-tap filter: P = 1, the
+    # window is the new spectra; one shared filter, then per-stream
+    # spectra as in its two-filter batch) and at the deep phase's
+    # (P = 128, T = 64).
     short = mac_case(cu, rng, S, 1, T, shared=True)
+    mixed = mac_case(cu, rng, S, 1, T, shared=False)
     deep = mac_case(cu, rng, 1, DEEP_SIZE // FRAGM, DEEP_T, shared=True)
+    cases = [short, mixed, deep]
     results["fdl_mac"] = dict(
         {k: v for k, v in short.items() if k != "shape"},
-        max_abs_err=max(short["max_abs_err"], deep["max_abs_err"]),
-        cases=[short, deep])
+        max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
 
 
 def kernels_row_windows(cu, rng, results: dict) -> None:
@@ -663,6 +697,20 @@ def phase_sharded(dev, tmp: str) -> dict:
     return dict(launches=c, snr_db=worst, rel_vs_split=rel)
 
 
+def phase_dryrun() -> dict:
+    log("phase dryrun: entry.dryrun_multichip(8) on the card")
+    from folve_tpu_torch.entry import dryrun_multichip
+
+    reset_counts()
+    dryrun_multichip(8)
+    c = counts()
+    log(f"  launches {c}")
+    no_plain_mac("dryrun")
+    for name in ("fft_real_half_rows", "ifft_partial_rows"):
+        assert c[name] > 0, f"{name} never launched"
+    return dict(launches=c)
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -713,6 +761,7 @@ def main() -> int:
         short = run_phase("serve_short", phase_serve_short, dev, tmp)
         deep = run_phase("deep", phase_deep, dev)
         sharded = run_phase("sharded", phase_sharded, dev, tmp)
+    run_phase("dryrun", phase_dryrun)
     callers = {"conv_step_fused": "serve_shared", "fdl_mac": "serve_short+deep",
                "fft_real_half_rows": "sharded", "ifft_partial_rows": "sharded",
                "ifft_from_half": None}

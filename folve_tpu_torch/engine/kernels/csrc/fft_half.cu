@@ -46,9 +46,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int launch(const float* x, float* yr, float* yi, const float* plan, int R,
-           int length, int m1, int m2, int k1_start, int k1_n,
-           void* stream) {
+}  // namespace
+
+// x [R, length] -> yr, yi [R, k1_n*cols]: the k1 rows [k1_start,
+// k1_start + k1_n) of the half spectrum (the window (0, m1) is all of it);
+// plan: packed plan factors.
+extern "C" int folve_fft_real_half_rows(const float* x, float* yr, float* yi,
+                                        const float* plan, int R, int length,
+                                        int m1, int m2, int k1_start, int k1_n,
+                                        void* stream) {
   const Plan P = folve::make_plan(plan, m1, m2);
   const int rows = min(m1, (length + m2 - 1) / m2);
   const size_t smem = (size_t)(rows * m2 + (kThreads / 32) * 2 * m2) *
@@ -60,22 +66,4 @@ int launch(const float* x, float* yr, float* yi, const float* plan, int R,
   fft_real_half_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       x, yr, yi, P, length, rows, k1_start, k1_n);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// x [R, length] -> yr, yi [R, m1*cols]; plan: packed plan factors.
-extern "C" int folve_fft_real_half(const float* x, float* yr, float* yi,
-                                   const float* plan, int R, int length,
-                                   int m1, int m2, void* stream) {
-  return launch(x, yr, yi, plan, R, length, m1, m2, 0, m1, stream);
-}
-
-// x [R, length] -> yr, yi [R, k1_n*cols]: the k1 rows [k1_start,
-// k1_start + k1_n) of the half spectrum.
-extern "C" int folve_fft_real_half_rows(const float* x, float* yr, float* yi,
-                                        const float* plan, int R, int length,
-                                        int m1, int m2, int k1_start, int k1_n,
-                                        void* stream) {
-  return launch(x, yr, yi, plan, R, length, m1, m2, k1_start, k1_n, stream);
 }

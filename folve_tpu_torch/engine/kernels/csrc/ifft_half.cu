@@ -113,9 +113,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-int launch_rows(const float* yr, const float* yi, float* out,
-                const float* plan, int R, int m1, int m2, int k1_start,
-                int k1_n, void* stream) {
+}  // namespace
+
+// yr, yi [R, k1_n*cols] (unweighted half-spectrum rows [k1_start,
+// k1_start + k1_n)) -> out [R, n]: this window's partial inverse; the
+// window (0, m1) gives the whole inverse.
+extern "C" int folve_ifft_partial_rows(const float* yr, const float* yi,
+                                       float* out, const float* plan, int R,
+                                       int m1, int m2, int k1_start, int k1_n,
+                                       void* stream) {
   const Plan P = folve::make_plan(plan, m1, m2);
   const size_t smem =
       (size_t)(2 * m1 * m2 + (kThreads / 32) * 2 * m2) * sizeof(float);
@@ -125,24 +131,6 @@ int launch_rows(const float* yr, const float* yi, float* out,
   ifft_rows_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
       yr, yi, out, P, k1_start, k1_n);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// yr, yi [R, k1_n*cols] (unweighted half-spectrum rows [k1_start,
-// k1_start + k1_n)) -> out [R, n]: this window's partial inverse.
-extern "C" int folve_ifft_partial_rows(const float* yr, const float* yi,
-                                       float* out, const float* plan, int R,
-                                       int m1, int m2, int k1_start, int k1_n,
-                                       void* stream) {
-  return launch_rows(yr, yi, out, plan, R, m1, m2, k1_start, k1_n, stream);
-}
-
-// yr, yi [R, m1*cols] -> out [R, n]: the whole inverse.
-extern "C" int folve_ifft_from_half(const float* yr, const float* yi,
-                                    float* out, const float* plan, int R,
-                                    int m1, int m2, void* stream) {
-  return launch_rows(yr, yi, out, plan, R, m1, m2, 0, m1, stream);
 }
 
 // yr, yi [S, T, C, m1*cols] (unweighted half spectra); y [S, T, C, n/2]

@@ -27,15 +27,34 @@ import math
 import torch
 
 from folve_tpu_torch.engine.kernels import _build
-from folve_tpu_torch.engine.rfft import fft_real, half_bins, plan_tensors
+from folve_tpu_torch.engine.rfft import fft_real, plan_tensors
 
 
-def _launch_args(x: torch.Tensor, n: int, what: str):
+def _half_rows(wrapper, x: torch.Tensor, n: int, k1_start: int, k1_n: int):
+    """Launch ``csrc/fft_half.cu`` for ``wrapper`` (whose launch count it
+    raises): float32 ``x [..., L]`` -> ``(re, im)`` each ``[...,
+    k1_n * cols]``, the k1 rows ``[k1_start, k1_start + k1_n)``."""
+    what = wrapper.__name__
     if x.dtype != torch.float32:
         raise TypeError(f"{what} takes float32, got {x.dtype}")
     if x.shape[-1] > n or n > 16384:
         raise ValueError(f"{what}: length {x.shape[-1]}, n {n} unsupported")
-    return x.contiguous(), plan_tensors(n, x.device)
+    x, pt = x.contiguous(), plan_tensors(n, x.device)
+    if k1_n < 1 or k1_start < 0 or k1_start + k1_n > pt.m1:
+        raise ValueError(f"{what}: window ({k1_start}, {k1_n}) "
+                         f"outside {pt.m1} rows")
+    batch = x.shape[:-1]
+    k = k1_n * (pt.m2 // 2 + 1)
+    yr = torch.empty(*batch, k, device=x.device, dtype=torch.float32)
+    yi = torch.empty_like(yr)
+    P_, I_ = _build.P, _build.I
+    fn = _build.function("fft_half", "folve_fft_real_half_rows",
+                         [P_, P_, P_, P_, I_, I_, I_, I_, I_, I_, P_])
+    wrapper.launches += 1
+    _build.check(fn(_build.ptr(x), _build.ptr(yr), _build.ptr(yi),
+                    _build.ptr(pt.packed), math.prod(batch), x.shape[-1],
+                    pt.m1, pt.m2, k1_start, k1_n, _build.stream_of(x)), what)
+    return yr, yi
 
 
 def fft_real_half_plain(x: torch.Tensor, n: int):
@@ -48,19 +67,8 @@ def fft_real_half(x: torch.Tensor, n: int):
     each ``[..., half_bins(n)]`` in the permuted half-spectrum layout."""
     if not x.is_cuda:
         return fft_real_half_plain(x, n)
-    x, pt = _launch_args(x, n, "fft_real_half")
-    batch = x.shape[:-1]
-    k = half_bins(n)
-    yr = torch.empty(*batch, k, device=x.device, dtype=torch.float32)
-    yi = torch.empty_like(yr)
-    fn = _build.function("fft_half", "folve_fft_real_half", [
-        _build.P, _build.P, _build.P, _build.P,
-        _build.I, _build.I, _build.I, _build.I, _build.P])
-    fft_real_half.launches += 1
-    _build.check(fn(_build.ptr(x), _build.ptr(yr), _build.ptr(yi),
-                    _build.ptr(pt.packed), math.prod(batch), x.shape[-1],
-                    pt.m1, pt.m2, _build.stream_of(x)), "fft_real_half")
-    return yr, yi
+    m1 = plan_tensors(n, x.device).m1
+    return _half_rows(fft_real_half, x, n, 0, m1)
 
 
 fft_real_half.launches = 0
@@ -79,23 +87,7 @@ def fft_real_half_rows(x: torch.Tensor, n: int, k1_start: int, k1_n: int):
     ``(re, im)`` each ``[..., k1_n * cols]``, cols = M2/2 + 1."""
     if not x.is_cuda:
         return fft_real_half_rows_plain(x, n, k1_start, k1_n)
-    x, pt = _launch_args(x, n, "fft_real_half_rows")
-    if k1_n < 1 or k1_start < 0 or k1_start + k1_n > pt.m1:
-        raise ValueError(f"fft_real_half_rows: window ({k1_start}, {k1_n}) "
-                         f"outside {pt.m1} rows")
-    batch = x.shape[:-1]
-    k = k1_n * (pt.m2 // 2 + 1)
-    yr = torch.empty(*batch, k, device=x.device, dtype=torch.float32)
-    yi = torch.empty_like(yr)
-    fn = _build.function("fft_half", "folve_fft_real_half_rows", [
-        _build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
-        _build.I, _build.I, _build.I, _build.I, _build.P])
-    fft_real_half_rows.launches += 1
-    _build.check(fn(_build.ptr(x), _build.ptr(yr), _build.ptr(yi),
-                    _build.ptr(pt.packed), math.prod(batch), x.shape[-1],
-                    pt.m1, pt.m2, k1_start, k1_n, _build.stream_of(x)),
-                 "fft_real_half_rows")
-    return yr, yi
+    return _half_rows(fft_real_half_rows, x, n, k1_start, k1_n)
 
 
 fft_real_half_rows.launches = 0

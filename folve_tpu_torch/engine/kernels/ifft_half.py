@@ -91,8 +91,8 @@ def ifft_from_half_plain(yr: torch.Tensor, yi: torch.Tensor,
     return rfft.ifft_from_half(yr, yi, n)
 
 
-def _inverse_rows(wrapper, yr, yi, n: int, k1_start: int, k1_n: int,
-                  entry: str, window: bool) -> torch.Tensor:
+def _inverse_rows(wrapper, yr, yi, n: int, k1_start: int,
+                  k1_n: int) -> torch.Tensor:
     """Launch ``csrc/ifft_half.cu``'s row-window inverse for ``wrapper``
     (whose launch count it raises): ``yr``/``yi`` ``[..., k1_n * cols]``
     -> float32 ``[..., n]``."""
@@ -112,14 +112,12 @@ def _inverse_rows(wrapper, yr, yi, n: int, k1_start: int, k1_n: int,
     batch = yr.shape[:-1]
     out = torch.empty(*batch, n, device=yr.device, dtype=torch.float32)
     P_, I_ = _build.P, _build.I
-    win = [I_, I_] if window else []
-    fn = _build.function("ifft_half", entry, [P_, P_, P_, P_, I_, I_, I_]
-                         + win + [P_])
-    args = [k1_start, k1_n] if window else []
+    fn = _build.function("ifft_half", "folve_ifft_partial_rows",
+                         [P_, P_, P_, P_, I_, I_, I_, I_, I_, P_])
     wrapper.launches += 1
     _build.check(fn(_build.ptr(yr), _build.ptr(yi), _build.ptr(out),
                     _build.ptr(pt.packed), math.prod(batch), pt.m1, pt.m2,
-                    *args, _build.stream_of(yr)), what)
+                    k1_start, k1_n, _build.stream_of(yr)), what)
     return out
 
 
@@ -131,8 +129,7 @@ def ifft_partial_rows(yr: torch.Tensor, yi: torch.Tensor, n: int,
     windows that tile the M1 rows, the inverse."""
     if not yr.is_cuda:
         return ifft_partial_rows_plain(yr, yi, n, k1_start, k1_n)
-    return _inverse_rows(ifft_partial_rows, yr, yi, n, k1_start, k1_n,
-                         "folve_ifft_partial_rows", window=True)
+    return _inverse_rows(ifft_partial_rows, yr, yi, n, k1_start, k1_n)
 
 
 ifft_partial_rows.launches = 0
@@ -144,8 +141,7 @@ def ifft_from_half(yr: torch.Tensor, yi: torch.Tensor, n: int) -> torch.Tensor:
     if not yr.is_cuda:
         return ifft_from_half_plain(yr, yi, n)
     m1 = plan_tensors(n, yr.device).m1
-    return _inverse_rows(ifft_from_half, yr, yi, n, 0, m1,
-                         "folve_ifft_from_half", window=False)
+    return _inverse_rows(ifft_from_half, yr, yi, n, 0, m1)
 
 
 ifft_from_half.launches = 0

@@ -202,8 +202,8 @@ class DeviceScheduler:
         self.device = resolve_device(device)
         self._mesh = mesh
         self._sharded_steps: Dict[Tuple, object] = {}
-        # Live sharded state batches per bank signature (guarded by
-        # _mutex), as weak references.
+        # Live state batches (_FusedSlots or _SlotStates) per batch kind
+        # and bank signature, as weak references (guarded by _mutex).
         self._parents: Dict[Tuple, list] = {}
         _live_schedulers.add(self)
         self._max_batch = max_batch
@@ -212,8 +212,6 @@ class DeviceScheduler:
         # identities of the source tensors.  (The fused kernel's permuted
         # spectra are cached per bank by engine.stream.eager_h_perm.)
         self._placed: "OrderedDict[object, Tuple]" = OrderedDict()
-        # Live carry batches per bank signature (guarded by _mutex).
-        self._fused_parents: Dict[Tuple, list] = {}
         # Stream tokens recently seen by submit(): skip the coalescing
         # window when provably only one stream is pumping.
         self._stream_seen: Dict[object, float] = {}
@@ -275,10 +273,9 @@ class DeviceScheduler:
             raise ValueError(
                 f"bank on {bank.device}, scheduler on {self.device}")
         if isinstance(state, (FusedStateRef, ShardedStateRef)):
-            parents = (self._fused_parents if isinstance(state, FusedStateRef)
-                       else self._parents)
+            key = (type(state.parent),) + _signature(bank)
             with self._mutex:
-                refs = parents.get(_signature(bank), ())
+                refs = self._parents.get(key, ())
                 live = any(r() is state.parent for r in refs)
             if not live:
                 # Superseded batch: materialize this row so the old
@@ -372,6 +369,17 @@ class DeviceScheduler:
         self.latency.record(dt)
         if n > 1:
             self.batched_jobs += n
+
+    def _register_parent(self, bank: FilterBank, parent) -> None:
+        """Record a new live state batch.  Several batches of one kind and
+        signature may be live at once (queue overflow splits, edge-block
+        chunk shapes); weak references let a batch die when no stream's
+        state refers to it."""
+        with self._mutex:
+            refs = self._parents.setdefault(
+                (type(parent),) + _signature(bank), [])
+            refs[:] = [r for r in refs if r() is not None][-7:]
+            refs.append(weakref.ref(parent))
 
     def _place(self, key, sources: tuple, make):
         """LRU of device layouts derived from ``sources`` (checked by
@@ -473,10 +481,7 @@ class DeviceScheduler:
         y = y5.reshape(s, t, cout, bank0.fragm)
         self._record(t0, len(jobs), fused=True)
         new_parent = _FusedSlots(new_carry)
-        with self._mutex:
-            refs = self._fused_parents.setdefault(_signature(bank0), [])
-            refs[:] = [r for r in refs if r() is not None][-7:]
-            refs.append(weakref.ref(new_parent))
+        self._register_parent(bank0, new_parent)
         for i, job in enumerate(jobs):
             job.future.set_result((FusedStateRef(new_parent, i), y[i]))
 
@@ -540,12 +545,6 @@ class DeviceScheduler:
         self._record(t0, len(jobs))
         self.sharded_steps += 1
         new_parent = _SlotStates(new_re, new_im, new_tail, new_max)
-        with self._mutex:
-            # Several batches of one signature may be live at once (queue
-            # overflow splits, edge-block chunk shapes); weak references
-            # let a batch die when no stream's state refers to it.
-            refs = self._parents.setdefault(_signature(bank0), [])
-            refs[:] = [r for r in refs if r() is not None][-7:]
-            refs.append(weakref.ref(new_parent))
+        self._register_parent(bank0, new_parent)
         for i, job in enumerate(jobs):
             job.future.set_result((ShardedStateRef(new_parent, i), y_host[i]))

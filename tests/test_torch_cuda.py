@@ -316,3 +316,15 @@ def test_default_device_scheduler_takes_default_banks(cuda, rng):
         sched.stop()
     _, ref = ts.chunk_step(bank, ts.init_state(bank), x, 128)
     assert _rel_err(y, ref) < 1e-6
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_card(cuda):
+    """The multichip dry run with its default device: a mesh of eight
+    entries of the card, whose shards run the row-window FFT kernels."""
+    from folve_tpu_torch.entry import dryrun_multichip
+
+    before = (fft_real_half_rows.launches, ifft_partial_rows.launches)
+    dryrun_multichip(8)
+    assert fft_real_half_rows.launches > before[0]
+    assert ifft_partial_rows.launches > before[1]

@@ -249,4 +249,4 @@ def test_sharded_array_layout_and_take(rng):
 def test_dryrun_multichip():
     from folve_tpu_torch.entry import dryrun_multichip
 
-    dryrun_multichip(8)
+    dryrun_multichip(8, device="cpu")
