@@ -7,8 +7,9 @@ Phases (any failure exits nonzero; no phase's exception is caught):
   kernels      each kernel against its plain PyTorch version at the flagship
                shapes (131,072-tap stereo, fragm 8192, P 16, S 8 x T 8; the
                window MAC at P 1 and at P 128 x T 64; the row-window FFTs for
-               each of 4 freq shards), with times, bounds and the torch.fft
-               yardstick
+               each of 4 freq shards), with times (back to back, and from
+               a CUDA graph for the FFT and window-MAC kernels), bounds, and
+               the torch.fft and torch.einsum yardsticks
   serve_shared 8 streams of one filter through DeviceScheduler (fused kernel)
   serve_mixed  8 streams of two filters of one shape (split kernels)
   processor    a lone SoundProcessor: pump_chunk at 16 and 24 bits, then the
@@ -185,6 +186,20 @@ def fft_ops(n: int) -> float:
     return 2.5 * n * math.log2(n)
 
 
+def mac_einsum(h, xr, xi, t: int):
+    """The FDL MAC Y[t] = sum_p H[p] * X[t + P-1 - p] as one torch.einsum
+    over complex64 operands built here, outside any timed region: H
+    flipped over p, and the window [S, T+P-1, Cin, K] unfolded over p.
+    The yardstick of kernels 3 and 5 (no port path calls it).  Returns
+    the call and its (re, im) result."""
+    hc = torch.complex(h[..., 0, :], h[..., 1, :]).flip(-4).contiguous()
+    wu = torch.complex(xr, xi).unfold(1, h.shape[-5], 1)  # [S, T, Cin, K, P]
+    eq = "stikj,jiok->stok" if h.dim() == 5 else "stikj,sjiok->stok"
+    call = lambda: torch.einsum(eq, wu, hc)
+    y = call()
+    return call, (y.real, y.imag)
+
+
 def max_err(got, ref) -> tuple[float, float]:
     """(max |got - ref|, max |ref|) over tensors or tuples of tensors."""
     if torch.is_tensor(got):
@@ -217,11 +232,13 @@ def phase_kernels(dev, results: dict) -> None:
     err = check_kernel("fft_real_half", got, ref)
     r = S * T * CIN
     bms, bby = bound(r * fft_ops(N), 4.0 * r * (b + 2 * K))
+    rfft_call = lambda: torch.fft.rfft(x, n=N)
     results["fft_real_half"] = dict(
         max_abs_err=err, ms=time_ms(lambda: fft_real_half(x, N), 20),
+        graph_ms=graph_ms(lambda: fft_real_half(x, N), 20),
         plain_ms=time_ms(lambda: fft_real_half_plain(x, N), 5),
-        library_ms=time_ms(lambda: torch.fft.rfft(x, n=N), 20),
-        bound_ms=bms, bound_by=bby)
+        library_ms=time_ms(rfft_call, 20), library_graph_ms=graph_ms(rfft_call, 20),
+        library="torch.fft.rfft", bound_ms=bms, bound_by=bby)
 
     # Kernel 3: FDL MAC with per-stream filters (mixed batch).
     h = cu(rng.standard_normal((S, P, CIN, COUT, 2, K)) / 64)
@@ -233,10 +250,15 @@ def phase_kernels(dev, results: dict) -> None:
     flops = 8.0 * S * T * COUT * P * CIN * K
     nbytes = 4.0 * (h.numel() + 2 * hr.numel() + 2 * xr.numel() + 2 * S * T * COUT * K)
     bms, bby = bound(flops, nbytes)
+    lib, lib_out = mac_einsum(h, torch.cat([hr, xr], dim=1), torch.cat([hi, xi], dim=1), T)
+    check_kernel("fdl_mac_split yardstick (torch.einsum)", lib_out, ref)
     results["fdl_mac_split"] = dict(
         max_abs_err=err, ms=time_ms(lambda: fdl_mac_split(h, hr, hi, xr, xi), 20),
         plain_ms=time_ms(lambda: fdl_mac_split_plain(h, hr, hi, xr, xi), 5),
-        library_ms=None, bound_ms=bms, bound_by=bby)
+        library_ms=time_ms(lib, 20), library_graph_ms=graph_ms(lib, 10),
+        library="torch.einsum over complex64, hist and new spectra concatenated "
+                "and the window unfolded beforehand",
+        bound_ms=bms, bound_by=bby)
 
     # Kernel 4: inverse + overlap-add of the mixed path's MAC output.
     yr, yi = cu(rng.standard_normal((S, T, COUT, K))), cu(rng.standard_normal((S, T, COUT, K)))
@@ -250,11 +272,13 @@ def phase_kernels(dev, results: dict) -> None:
     # Per row: the inverse FFT, the c/n weight on each bin, the OLA add.
     bms, bby = bound(nrow * (fft_ops(N) + 2 * K + b),
                      4.0 * (nrow * (2 * K + b) + 2 * S * COUT * b))
+    irfft_call = lambda: torch.fft.irfft(spec, n=N)
     results["ifft_ola"] = dict(
         max_abs_err=err, ms=time_ms(lambda: ifft_ola(yr, yi, tail, N), 20),
+        graph_ms=graph_ms(lambda: ifft_ola(yr, yi, tail, N), 20),
         plain_ms=time_ms(lambda: ifft_ola_plain(yr, yi, tail, N), 5),
-        library_ms=time_ms(lambda: torch.fft.irfft(spec, n=N), 20),
-        bound_ms=bms, bound_by=bby)
+        library_ms=time_ms(irfft_call, 20), library_graph_ms=graph_ms(irfft_call, 20),
+        library="torch.fft.irfft", bound_ms=bms, bound_by=bby)
 
     # Kernel 1: the fused step on the shared filter, both hist layouts.
     rows, m2, m1, cols = fused_preshape(N)
@@ -288,8 +312,9 @@ def phase_kernels(dev, results: dict) -> None:
     kernels_window_mac(cu, rng, results)
     kernels_row_windows(cu, rng, results)
     for name, r in results.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        log(f"  {name}: kernel {r['ms']:.4f} ms (graph {r.get('graph_ms')}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms (graph "
+            f"{r.get('library_graph_ms')}), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def mac_case(cu, rng, s: int, p: int, t: int, shared: bool) -> dict:
@@ -297,13 +322,15 @@ def mac_case(cu, rng, s: int, p: int, t: int, shared: bool) -> dict:
     H, the window and Y each moved once, 8 FLOP per complex term.  ``ms``
     is a stream of 200 back-to-back calls, host time per launch included;
     ``graph_ms`` the same calls replayed from a CUDA graph, device time
-    alone."""
+    alone; ``library_ms`` one torch.einsum (:func:`mac_einsum`)."""
     h = cu(rng.standard_normal(((p,) if shared else (s, p)) + (CIN, COUT, 2, K))
            / np.sqrt(p * CIN))
     xr = cu(rng.standard_normal((s, t + p - 1, CIN, K)))
     xi = cu(rng.standard_normal((s, t + p - 1, CIN, K)))
-    err = check_kernel(f"fdl_mac(S={s}, P={p}, T={t})", fdl_mac(h, xr, xi, t),
-                       fdl_mac_plain(h, xr, xi, t))
+    ref = fdl_mac_plain(h, xr, xi, t)
+    err = check_kernel(f"fdl_mac(S={s}, P={p}, T={t})", fdl_mac(h, xr, xi, t), ref)
+    lib, lib_out = mac_einsum(h, xr, xi, t)
+    check_kernel(f"fdl_mac(S={s}, P={p}, T={t}) yardstick (torch.einsum)", lib_out, ref)
     bms, bby = bound(8.0 * s * t * COUT * p * CIN * K,
                      4.0 * (h.numel() + 2 * xr.numel() + 2 * s * t * COUT * K))
     return dict(shape=dict(S=s, P=p, T=t, Cin=CIN, Cout=COUT, K=K,
@@ -311,7 +338,9 @@ def mac_case(cu, rng, s: int, p: int, t: int, shared: bool) -> dict:
                 max_abs_err=err, ms=time_ms(lambda: fdl_mac(h, xr, xi, t), 200),
                 graph_ms=graph_ms(lambda: fdl_mac(h, xr, xi, t), 50),
                 plain_ms=time_ms(lambda: fdl_mac_plain(h, xr, xi, t), 3),
-                library_ms=None, bound_ms=bms, bound_by=bby)
+                library_ms=time_ms(lib, 20), library_graph_ms=graph_ms(lib, 10),
+                library="torch.einsum over complex64, the window unfolded beforehand",
+                bound_ms=bms, bound_by=bby)
 
 
 def kernels_window_mac(cu, rng, results: dict) -> None:
@@ -354,6 +383,7 @@ def kernels_row_windows(cu, rng, results: dict) -> None:
         fwd.append(dict(
             k1_start=ks, k1_n=kn, max_abs_err=err, bound_ms=bms, bound_by=bby,
             ms=time_ms(lambda: fft_real_half_rows(x, N, ks, kn), 20),
+            graph_ms=graph_ms(lambda: fft_real_half_rows(x, N, ks, kn), 20),
             plain_ms=time_ms(lambda: fft_real_half_rows_plain(x, N, ks, kn), 5)))
         wr, wi = win(yr, ks), win(yi, ks)
         part = ifft_partial_rows(wr, wi, N, ks, kn)
@@ -365,22 +395,25 @@ def kernels_row_windows(cu, rng, results: dict) -> None:
         inv.append(dict(
             k1_start=ks, k1_n=kn, max_abs_err=err, bound_ms=bms, bound_by=bby,
             ms=time_ms(lambda: ifft_partial_rows(wr, wi, N, ks, kn), 20),
+            graph_ms=graph_ms(lambda: ifft_partial_rows(wr, wi, N, ks, kn), 20),
             plain_ms=time_ms(lambda: ifft_partial_rows_plain(wr, wi, N, ks, kn), 5)))
     whole = ifft_from_half_plain(yr, yi, N)
     sum_err = check_kernel(f"sum of {FREQ} ifft_partial_rows vs ifft_from_half_plain",
                            total, whole)
-    for name, rows, lib in (
-            ("fft_real_half_rows", fwd, time_ms(lambda: torch.fft.rfft(x, n=N), 20)),
-            ("ifft_partial_rows", inv, time_ms(lambda: torch.fft.irfft(spec, n=N), 20))):
+    rfft_call = lambda: torch.fft.rfft(x, n=N)
+    irfft_call = lambda: torch.fft.irfft(spec, n=N)
+    for name, rows, lib in (("fft_real_half_rows", fwd, rfft_call),
+                            ("ifft_partial_rows", inv, irfft_call)):
         results[name] = dict(
             max_abs_err=max(w["max_abs_err"] for w in rows),
             ms=float(np.mean([w["ms"] for w in rows])),
+            graph_ms=float(np.mean([w["graph_ms"] for w in rows])),
             plain_ms=float(np.mean([w["plain_ms"] for w in rows])),
             bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
-            library_ms=lib,
+            library_ms=time_ms(lib, 20), library_graph_ms=graph_ms(lib, 20),
             library=("torch.fft." + ("rfft" if name.startswith("fft") else "irfft")
                      + " over all k1 rows (the whole transform), one call"),
-            per_window="ms, plain_ms, bound_ms are one window's (mean over windows)",
+            per_window="ms, graph_ms, plain_ms, bound_ms are one window's (mean over windows)",
             windows=rows)
     results["ifft_partial_rows"]["sum_vs_whole_err"] = sum_err
 
@@ -389,9 +422,10 @@ def kernels_row_windows(cu, rng, results: dict) -> None:
     bms, bby = bound(r * (fft_ops(N) + 2 * K), 4.0 * r * (2 * K + N))
     results["ifft_from_half"] = dict(
         max_abs_err=err, ms=time_ms(lambda: ifft_from_half(yr, yi, N), 20),
+        graph_ms=graph_ms(lambda: ifft_from_half(yr, yi, N), 20),
         plain_ms=time_ms(lambda: ifft_from_half_plain(yr, yi, N), 5),
-        library_ms=time_ms(lambda: torch.fft.irfft(spec, n=N), 20),
-        bound_ms=bms, bound_by=bby)
+        library_ms=time_ms(irfft_call, 20), library_graph_ms=graph_ms(irfft_call, 20),
+        library="torch.fft.irfft", bound_ms=bms, bound_by=bby)
 
 
 def write_float_wav(path: str, data: np.ndarray, rate: int) -> None:
@@ -741,7 +775,10 @@ def main() -> int:
     _build.build_all()
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if "Compiling entry function" in line:  # the kernel (mangled) that follows
+                entry = line.split("'")[1]
+                log(f"  {name}: {entry}")
+            elif "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  {name}: {line.strip()}")
     log(f"  built in {_build.build_seconds:.1f} s")
     log(f"  phase build: {time.perf_counter() - t0:.1f} s")

@@ -1,10 +1,12 @@
-// Device building blocks of the matmul DFT shared by the forward, inverse
-// and fused conv-step kernels.
+// The packed plan (Plan, make_plan), read by every FFT kernel, and the
+// dense matmul-DFT helpers (fwd_row, inv_row, inv_stage2*), which serve
+// the fused conv-step kernel (conv_step.cu) alone: the forward and inverse
+// kernels run radix FFTs (fft_radix.cuh).
 //
-// The transform of size n = m1*m2 runs as two dense stages (Cooley-Tukey,
-// see engine/rfft.py) in plain fp32 FMA on the CUDA cores: no TF32 and no
-// bf16 split, so the kernels track the float32 reference to ~1e-6
-// relative.  n <= 16384 (fragm <= MAXQUANT = 8192), so m1, m2 <= 128 and
+// In the dense helpers the transform of size n = m1*m2 runs as two dense
+// stages (Cooley-Tukey, see engine/rfft.py) in plain fp32 FMA on the CUDA
+// cores: no TF32 and no bf16 split, so the kernel tracks the float32
+// reference to ~1e-6 relative.  n <= 16384 (fragm <= MAXQUANT = 8192), so m1, m2 <= 128 and
 // m1 >= m2.  The DFT factor matrices are symmetric (outer(k, k)), which
 // lets every stage read them row-major with neighbouring lanes on
 // neighbouring columns.

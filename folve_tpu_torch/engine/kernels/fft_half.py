@@ -11,13 +11,15 @@ an int and the kernel indexes the plan's factors.
 Bound on the H100: bytes.  At the flagship shape (n = 16384, R = 16
 signals per stream) each signal reads 32 KB and writes 66 KB, and a real
 FFT needs 2.5*n*log2(n) = 0.57 MFLOP of it: ~6 FLOP per byte, below the
-card's fp32 (non tensor core) balance of ~20.  This kernel runs the two
-DFT stages as dense products instead, 4*m1*rows*m2 + 8*m1*cols*m2 =
-12.7 MFLOP per signal (22x the FFT count), which is what keeps it far
-above the bound.  Design: grid (k1-row tiles, signals); the signal's
-non-zero rows sit in shared memory once per block and each warp computes
-whole k1 rows, both stages in registers and a per-warp shared row, in
-fp32 FMA (no TF32: the engine's -90 dB budget needs full fp32 products).
+card's fp32 (non tensor core) balance of ~20.  Design: one block per
+signal runs both stages of the four-step split n = m1*m2 as radix FFTs
+(``csrc/fft_radix.cuh``: register DFTs of at most 16 points, exchanges
+through a 132 KB shared-memory intermediate), so device memory sees each
+input byte and each output byte once; stage 1 reads only the non-zero
+input rows and prunes the first layer under the engine's 2x zero pad,
+and a k1 window runs stage 2 on its rows alone.  All arithmetic is fp32
+on the CUDA cores (no TF32: the engine's -90 dB budget needs full fp32),
+with twiddles from the host's float64 tables rounded once.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def _half_rows(wrapper, x: torch.Tensor, n: int, k1_start: int, k1_n: int):
     what = wrapper.__name__
     if x.dtype != torch.float32:
         raise TypeError(f"{what} takes float32, got {x.dtype}")
-    if x.shape[-1] > n or n > 16384:
+    if x.shape[-1] > n or not 128 <= n <= 16384:
         raise ValueError(f"{what}: length {x.shape[-1]}, n {n} unsupported")
     x, pt = x.contiguous(), plan_tensors(n, x.device)
     if k1_n < 1 or k1_start < 0 or k1_start + k1_n > pt.m1:

@@ -13,14 +13,16 @@ package has none).
 Bound on the H100: bytes.  Per block and channel at n = 16384 the
 kernel reads 66 KB of spectrum and writes 32 KB of audio (plus the tail),
 and a real inverse FFT needs 2.5*n*log2(n) = 0.57 MFLOP of it: ~6 FLOP
-per byte, below the card's fp32 balance of ~20.  This kernel's dense DFT
-stages do 8*m1*cols*m2 + 4*m1*m1*m2 = 17 MFLOP (30x the FFT count).
-Design: one block per (stream, t, channel) holds the whole complex
-intermediate V [m1, m2] in shared memory; the overlap tail that the TPU
-carried over a sequential t grid is instead added with two-term
-atomicAdds into an output pre-set to (tail_in, 0, ...), which is
-deterministic (see the source note in the .cu file) and keeps all blocks
-in flight.
+per byte, below the card's fp32 balance of ~20.  Design: one kernel body
+for both entry points, templated on its epilogue; one block per signal
+(per (stream, t, channel) for the overlap-add) runs the inverse of the
+four-step split as radix FFTs (``csrc/fft_radix.cuh``) with the complex
+intermediate in shared memory, so device memory sees each byte once;
+the window's rows alone enter stage 1, and the zero columns c >= cols
+prune its first layer.  The overlap tail that the TPU carried over a
+sequential t grid is instead added with two-term atomicAdds into an
+output pre-set to (tail_in, 0, ...), which is deterministic (see the
+source note in the .cu file) and keeps all blocks in flight.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ def ifft_ola(yr: torch.Tensor, yi: torch.Tensor, tail: torch.Tensor, n: int):
         return ifft_ola_plain(yr, yi, tail, n)
     *lead, t, c, k = yr.shape
     b = n // 2
-    if k != half_bins(n) or n > 16384:
+    if k != half_bins(n) or not 128 <= n <= 16384:
         raise ValueError(f"ifft_ola: {k} bins do not fit n = {n}")
     if tuple(tail.shape) != (*lead, c, b) or yi.shape != yr.shape:
         raise ValueError(f"ifft_ola: shapes {yr.shape}, {yi.shape}, {tail.shape}")
@@ -99,7 +101,8 @@ def _inverse_rows(wrapper, yr, yi, n: int, k1_start: int,
     what = wrapper.__name__
     pt = plan_tensors(n, yr.device)
     cols = pt.m2 // 2 + 1
-    if n > 16384 or yr.shape[-1] != k1_n * cols or yi.shape != yr.shape:
+    if (not 128 <= n <= 16384 or yr.shape[-1] != k1_n * cols
+            or yi.shape != yr.shape):
         raise ValueError(f"{what}: shapes {tuple(yr.shape)}, "
                          f"{tuple(yi.shape)} do not fit n = {n}, k1_n = {k1_n}")
     if k1_n < 1 or k1_start < 0 or k1_start + k1_n > pt.m1:

@@ -74,15 +74,22 @@ def _rel_err(got, ref):
     return err / max(float(r.abs().max()) for r in ref)
 
 
+FRAGMS = [64, 128, 256, 512, 1024, 2048, 4096, 8192]  # n = 128 ... 16384
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("fragm", [64, 1024, 8192])
-def test_split_kernels_match_plain_on_card(cuda, rng, fragm):
-    n, s, t, p, cin, cout = 2 * fragm, 2, 3, 4, 2, 2
+@pytest.mark.parametrize("fragm", FRAGMS)
+@pytest.mark.parametrize("t", [1, 3])
+def test_split_kernels_match_plain_on_card(cuda, rng, fragm, t):
+    """Every FFT size (m1 = m2 and m1 = 2*m2), the forward at L < n/2,
+    L = n/2 and L = n, and the overlap-add at T = 1 and T > 1."""
+    n, s, p, cin, cout = 2 * fragm, 2, 4, 2, 2
     k = half_bins(n)
     cu = lambda *shape: torch.from_numpy(
         rng.standard_normal(shape).astype(np.float32)).to(cuda)
-    x = cu(s, t, cin, fragm)
-    assert _rel_err(fft_real_half(x, n), fft_real_half_plain(x, n)) < 1e-5
+    for length in (fragm - 3, fragm, n):
+        x = cu(s, t, cin, length)
+        assert _rel_err(fft_real_half(x, n), fft_real_half_plain(x, n)) < 1e-5, length
     h, hr, hi = cu(s, p, cin, cout, 2, k), cu(s, p - 1, cin, k), cu(s, p - 1, cin, k)
     xr, xi = cu(s, t, cin, k), cu(s, t, cin, k)
     assert _rel_err(fdl_mac_split(h[0], hr, hi, xr, xi),
@@ -155,7 +162,8 @@ def test_window_mac_matches_plain_on_card(cuda, rng, p, t, s, shared):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fragm,freq", [(64, 2), (1024, 4), (8192, 4)])
+@pytest.mark.parametrize("fragm", FRAGMS)
+@pytest.mark.parametrize("freq", [2, 4, 8])
 def test_row_window_ffts_match_plain_on_card(cuda, rng, fragm, freq):
     n = 2 * fragm
     from folve_tpu_torch.engine.rfft import get_plan
