@@ -8,8 +8,10 @@ Phases (any failure exits nonzero; no phase's exception is caught):
                shapes (131,072-tap stereo, fragm 8192, P 16, S 8 x T 8; the
                window MAC at P 1 and at P 128 x T 64; the row-window FFTs for
                each of 4 freq shards), with times (back to back, and from
-               a CUDA graph for the FFT and window-MAC kernels), bounds, and
-               the torch.fft and torch.einsum yardsticks
+               a CUDA graph), bounds, and the torch.fft and torch.einsum
+               yardsticks; the fused kernel also at S 1 with T 1 and T 8,
+               in both hist layouts, two calls held bit-identical, and
+               against the split kernels 2 -> 3 -> 4 on the same inputs
   serve_shared 8 streams of one filter through DeviceScheduler (fused kernel)
   serve_mixed  8 streams of two filters of one shape (split kernels)
   processor    a lone SoundProcessor: pump_chunk at 16 and 24 bits, then the
@@ -25,8 +27,10 @@ Phases (any failure exits nonzero; no phase's exception is caught):
                eight entries of the card, held to the engine step
 Every serving phase holds the output to -90 dB against a float64 oracle and
 runs no plain MAC on a CUDA tensor.  Prints the card's name and power limit
-first, each phase's seconds, a "kernels" JSON line before the last line, and
-as the last line {"ok": true, "device": {...}}.
+first, each phase's seconds, a "fused_vs_split" JSON line (kernel 1's graph
+time beside kernels 2 + 3 + 4's, and the serve_shared and serve_mixed steady
+steps), a "kernels" JSON line before the last line, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -174,6 +179,26 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
+def kernel_device_ms(fn, iters: int = 20) -> dict:
+    """Device time per call of each CUDA kernel that ``fn`` launches, by
+    kernel name, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us:
+            name = re.search(r"::(\w+)[<(]", e.key)
+            out[name.group(1) if name else e.key] = us / iters / 1e3
+    return out
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -219,7 +244,77 @@ def check_kernel(name: str, got, ref) -> float:
     return err
 
 
-def phase_kernels(dev, results: dict) -> None:
+def fused_inputs(cu, rng, hp, s: int, t: int, hist_t: bool) -> tuple:
+    """Seeded inputs of kernel 1 at the flagship width for ``s`` streams of
+    ``t`` blocks: x and tail pre-shaped, the hist in the layout ``hist_t``
+    names, and a ragged ``valid`` (the last stream ends inside its last
+    block, the one before it halfway through the chunk)."""
+    b = FRAGM
+    rows, m2, m1, cols = fused_preshape(N)
+    xs = cu(rng.standard_normal((s, t, CIN, rows, m2)))
+    tl = cu(rng.standard_normal((s, COUT, rows, m2)))
+    shape = (s, P - 1, CIN, cols, m1) if hist_t else (s, P - 1, CIN, K)
+    h_re, h_im = cu(rng.standard_normal(shape)), cu(rng.standard_normal(shape))
+    nv = np.full(s, t * b)
+    nv[-1] -= b // 2 + 3
+    if s > 1:
+        nv[-2] = t * b // 2 + 11
+    valid = torch.from_numpy(np.clip(nv[:, None] - np.arange(t)[None] * b, 0, b)
+                             .astype(np.int32)).to(xs.device)
+    return hp, xs, h_re, h_im, tl, valid, N
+
+
+def fused_vs_split(cu, rng) -> dict:
+    """Kernel 1 against the split route it fuses (kernels 2 -> 3 -> 4) on
+    the same seeded flagship inputs with one shared H: device time of
+    each from CUDA graphs, kernel 1's four launches apart from
+    torch.profiler, and the two routes' y and new tail held together.  The fused call takes the hist in its serving layout (the
+    transposed carry) and, second, in the canonical one the split route
+    takes; it also writes the new hist and the max, which the split
+    kernels leave to other calls."""
+    b = FRAGM
+    h = cu(rng.standard_normal((P, CIN, COUT, 2, K)) / 64)
+    hp = permute_h_for_fused(h, N)
+    x = cu(rng.standard_normal((S, T, CIN, b)))
+    hr, hi = cu(rng.standard_normal((S, P - 1, CIN, K))), cu(rng.standard_normal((S, P - 1, CIN, K)))
+    tl = cu(rng.standard_normal((S, COUT, b)))
+    valid = torch.full((S, T), b, dtype=torch.int32, device=x.device)
+    hr_t, hi_t = permute_h_for_fused(hr, N), permute_h_for_fused(hi, N)
+    fused = lambda: conv_step_fused(hp, x, hr_t, hi_t, tl, valid, N, hist_t=True)
+    fused_canonical = lambda: conv_step_fused(hp, x, hr, hi, tl, valid, N)
+    xr, xi = fft_real_half(x, N)
+    yr, yi = fdl_mac_split(h, hr, hi, xr, xi)
+
+    def split():
+        sr, si = fft_real_half(x, N)
+        mr, mi = fdl_mac_split(h, hr, hi, sr, si)
+        return ifft_ola(mr, mi, tl, N)
+
+    got, ref = fused(), split()
+    err, scale = max_err((got[0], got[3]), ref)
+    log(f"  fused vs split route (y, new tail): relative {err / scale:.3e} "
+        f"(limit {KERNEL_TOL:g})")
+    assert err <= KERNEL_TOL * scale, "fused and split routes disagree"
+    parts = dict(fft_real_half=graph_ms(lambda: fft_real_half(x, N), 20),
+                 fdl_mac_split=graph_ms(lambda: fdl_mac_split(h, hr, hi, xr, xi), 20),
+                 ifft_ola=graph_ms(lambda: ifft_ola(yr, yi, tl, N), 20))
+    out = dict(fused_graph_ms=graph_ms(fused, 20),
+               fused_canonical_hist_graph_ms=graph_ms(fused_canonical, 20),
+               split_graph_ms=parts, split_sum_graph_ms=sum(parts.values()),
+               split_chain_graph_ms=graph_ms(split, 20), rel_err=err / scale,
+               fused_phases_ms=kernel_device_ms(fused),
+               fused_canonical_hist_phases_ms=kernel_device_ms(fused_canonical))
+    out["target_met"] = out["fused_graph_ms"] <= out["split_sum_graph_ms"]
+    log(f"  fused {out['fused_graph_ms']:.4f} ms (canonical hist "
+        f"{out['fused_canonical_hist_graph_ms']:.4f}) vs split 2+3+4 "
+        f"{out['split_sum_graph_ms']:.4f} ms {parts} (as one chain "
+        f"{out['split_chain_graph_ms']:.4f}): target met {out['target_met']}; "
+        f"fused phases (torch.profiler) {out['fused_phases_ms']}, with the "
+        f"canonical hist {out['fused_canonical_hist_phases_ms']}")
+    return out
+
+
+def phase_kernels(dev, results: dict) -> dict:
     log("phase kernels: flagship shapes, seeded inputs")
     rng = np.random.default_rng(1)
     cu = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
@@ -254,6 +349,7 @@ def phase_kernels(dev, results: dict) -> None:
     check_kernel("fdl_mac_split yardstick (torch.einsum)", lib_out, ref)
     results["fdl_mac_split"] = dict(
         max_abs_err=err, ms=time_ms(lambda: fdl_mac_split(h, hr, hi, xr, xi), 20),
+        graph_ms=graph_ms(lambda: fdl_mac_split(h, hr, hi, xr, xi), 20),
         plain_ms=time_ms(lambda: fdl_mac_split_plain(h, hr, hi, xr, xi), 5),
         library_ms=time_ms(lib, 20), library_graph_ms=graph_ms(lib, 10),
         library="torch.einsum over complex64, hist and new spectra concatenated "
@@ -280,41 +376,49 @@ def phase_kernels(dev, results: dict) -> None:
         library_ms=time_ms(irfft_call, 20), library_graph_ms=graph_ms(irfft_call, 20),
         library="torch.fft.irfft", bound_ms=bms, bound_by=bby)
 
-    # Kernel 1: the fused step on the shared filter, both hist layouts.
-    rows, m2, m1, cols = fused_preshape(N)
+    # Kernel 1: the fused step on the shared filter, both hist layouts, at
+    # the flagship batch and at the lone stream's (S = 1, T = 1 and T).
     hp = permute_h_for_fused(cu(rng.standard_normal((P, CIN, COUT, 2, K)) / 64), N)
-    xs = cu(rng.standard_normal((S, T, CIN, rows, m2)))
-    tl = cu(rng.standard_normal((S, COUT, rows, m2)))
-    nv = np.array([T * b] * (S - 2) + [T * b - b // 2 - 3, 5 * b + 11])
-    valid = torch.from_numpy(np.clip(nv[:, None] - np.arange(T)[None] * b, 0, b)
-                             .astype(np.int32)).to(dev)
-    err, timed = 0.0, None
-    for hist_t in (True, False):
-        shape = (S, P - 1, CIN, cols, m1) if hist_t else (S, P - 1, CIN, K)
-        h_re, h_im = cu(rng.standard_normal(shape)), cu(rng.standard_normal(shape))
-        args = (hp, xs, h_re, h_im, tl, valid, N)
-        got = conv_step_fused(*args, hist_t=hist_t)
-        ref = conv_step_fused_plain(*args, hist_t=hist_t)
-        err = max(err, check_kernel(f"conv_step_fused(hist_t={hist_t})", got, ref))
-        if hist_t:  # the serving layout: time the call that was checked
-            timed = args
+    cases, timed = [], None
+    for s, t in ((S, T), (1, 1), (1, T)):
+        for hist_t in (True, False):
+            args = fused_inputs(cu, rng, hp, s, t, hist_t)
+            got = conv_step_fused(*args, hist_t=hist_t)
+            again = conv_step_fused(*args, hist_t=hist_t)
+            ref = conv_step_fused_plain(*args, hist_t=hist_t)
+            err = check_kernel(f"conv_step_fused(S={s}, T={t}, hist_t={hist_t})", got, ref)
+            # The overlap-add's atomics sum two terms per sample: the
+            # result does not depend on their order.
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            log(f"  conv_step_fused(S={s}, T={t}, hist_t={hist_t}): two calls "
+                f"bit-identical: {same}")
+            assert same, "conv_step_fused differs between two calls on the same inputs"
+            case = dict(S=s, T=t, hist_t=hist_t, max_abs_err=err, bit_identical=same)
+            if hist_t:  # the serving layout: time the call that was checked
+                timed = timed or args
+                case["graph_ms"] = graph_ms(lambda: conv_step_fused(*args, hist_t=True), 20)
+            cases.append(case)
+    args = timed  # the flagship's, checked first
+    flagship = lambda: conv_step_fused(*args, hist_t=True)
     # Per (stream, block): Cin forward and Cout inverse FFTs, the MAC, the
     # OLA add.  Bytes: H, x, y, hist in and out (two planes each), tail in
     # and out, valid, max.
     flops = S * T * ((CIN + COUT) * fft_ops(N) + 8.0 * P * CIN * COUT * K + COUT * b)
-    nbytes = 4.0 * (hp.numel() + xs.numel() + S * T * COUT * b
-                    + 4 * h_re.numel() + 2 * tl.numel() + valid.numel() + S)
+    nbytes = 4.0 * (hp.numel() + args[1].numel() + S * T * COUT * b
+                    + 4 * args[2].numel() + 2 * args[4].numel() + args[5].numel() + S)
     bms, bby = bound(flops, nbytes)
     results["conv_step_fused"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: conv_step_fused(*timed, hist_t=True), 5),
-        plain_ms=time_ms(lambda: conv_step_fused_plain(*timed, hist_t=True), 5),
-        library_ms=None, bound_ms=bms, bound_by=bby)
+        max_abs_err=max(c["max_abs_err"] for c in cases), ms=time_ms(flagship, 20),
+        graph_ms=cases[0]["graph_ms"],
+        plain_ms=time_ms(lambda: conv_step_fused_plain(*args, hist_t=True), 5),
+        library_ms=None, bound_ms=bms, bound_by=bby, cases=cases)
     kernels_window_mac(cu, rng, results)
     kernels_row_windows(cu, rng, results)
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms (graph {r.get('graph_ms')}), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms (graph "
             f"{r.get('library_graph_ms')}), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return fused_vs_split(cu, rng)
 
 
 def mac_case(cu, rng, s: int, p: int, t: int, shared: bool) -> dict:
@@ -784,7 +888,7 @@ def main() -> int:
     log(f"  phase build: {time.perf_counter() - t0:.1f} s")
 
     results: dict = {}
-    run_phase("kernels", phase_kernels, dev, results)
+    split = run_phase("kernels", phase_kernels, dev, results)
 
     # Each kernel's launches come from the serving path it belongs to:
     # the fused kernel from shared-filter serving, the split kernels from
@@ -794,7 +898,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="folve_chip_smoke_") as tmp:
         shared = run_phase("serve_shared", phase_serve_shared, dev, tmp)
         mixed = run_phase("serve_mixed", phase_serve_mixed, dev, tmp)
-        run_phase("processor", phase_processor, dev, tmp)
+        proc = run_phase("processor", phase_processor, dev, tmp)
         short = run_phase("serve_short", phase_serve_short, dev, tmp)
         deep = run_phase("deep", phase_deep, dev)
         sharded = run_phase("sharded", phase_sharded, dev, tmp)
@@ -803,6 +907,9 @@ def main() -> int:
                "fft_real_half_rows": "sharded", "ifft_partial_rows": "sharded",
                "ifft_from_half": None}
     results["conv_step_fused"]["launches"] = shared["launches"]["conv_step_fused"]
+    results["conv_step_fused"]["launches_by_phase"] = dict(
+        serve_shared=shared["launches"]["conv_step_fused"],
+        processor=proc["launches"]["conv_step_fused"])
     for name in ("fft_real_half", "fdl_mac_split", "ifft_ola"):
         results[name]["launches"] = mixed["launches"][name]
         callers[name] = "serve_mixed"
@@ -817,6 +924,9 @@ def main() -> int:
              replaces=KERNELS[name]["replaces"], caller=callers[name],
              **results[name])
         for name in KERNELS]}
+    split.update({f"{name}_{k}": v for name, r in (("serve_shared", shared), ("serve_mixed", mixed))
+                  for k, v in r.items() if k in ("step_ms", "realtime")})
+    log(json.dumps({"fused_vs_split": split}))
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,28 @@
 """Fused convolution step: forward FFT -> FDL MAC -> inverse + overlap-add
-+ clipping max, in one kernel.
++ clipping max, in one call.
 
 Replaces ``folve_tpu/engine/kernels/conv_step.py:_kernel`` (reached
 through ``pallas_conv_step_fused_pre`` and ``pallas_conv_step_fused``)
 with ``csrc/conv_step.cu``.
 
-Bound on the H100: bytes.  Per stream and block at the flagship shape
-the function needs 2.3 MFLOP of FFTs (two forward, two inverse channels,
-2.5*n*log2(n) each) and 4.3 MFLOP of MAC; per call it moves the 4.3 MB
-of filter spectra, the audio in and out, the tail, and the hist carry in
-and out (4 MB per stream), ~46 MB at S = 8 against ~0.42 GFLOP.  The
-kernel's dense DFT stages do 60 MFLOP per stream and block instead.
-Design: one block
-per stream loops over the chunk's blocks in order — the ring of past
-spectra and the overlap tail carry from one block to the next — with the
-ring and the MAC result in device-memory scratch (L2 resident) and the
-FFT working set in shared memory; see the note in the .cu file.  S
-blocks use S of the 132 SMs: right first, fast in a later change.
+Bound on the H100: bytes.  At the flagship shape (n = 16384, P = 16,
+Cin = Cout = 2, S = T = 8) the function moves about 46 MB (the 4.3 MB of
+filter spectra once, the audio in and out, the hist carry in and out,
+the tail) against 0.42 GFLOP (2.5*n*log2(n) per FFT, 8 per complex MAC
+term): 0.0136 ms at 3.35 TB/s, as ``chip_smoke.py`` computes it.
+
+Design: the TPU kernel walks the chunk's blocks in order only to keep H
+and the ring of past spectra resident in VMEM; the function has no such
+chain.  So the step runs as four phases, each over the whole card,
+launched in order on the caller's stream: every forward FFT at once (the
+radix body of ``csrc/fft_half.cu``) into scratch spectra; the MAC by
+tiles of bins, each block staging its tile of H in shared memory and
+reusing it for every stream, block and output channel of its group (H
+read once per call at the flagship, not once per stream and block),
+with the sums in registers, which also writes the new hist; every inverse at once with the overlap-add of
+``csrc/ifft_half.cu`` (deterministic two-term atomics); the masked
+max|y|.  Each phase has its own block shape and registers, and a CUDA
+graph captures the four launches.  See the note in the .cu file.
 
 The gate is a rule on shapes alone (:func:`fused_supported`).  A CUDA
 tensor whose kernel fails to build or launch raises; nothing falls back.
@@ -126,7 +132,7 @@ def conv_step_fused(h_perm: torch.Tensor, x: torch.Tensor,
     b = n // 2
     rows, m2, m1, cols = fused_preshape(n)
     if (not fused_supported(p, cin, cout, t, n) or two != 2
-            or k != m1 * cols or n > 16384
+            or k != m1 * cols or not 128 <= n <= 16384
             or x[0, 0].numel() != cin * b
             or hist_re.numel() != s * (p - 1) * cin * k
             or hist_im.shape != hist_re.shape
@@ -149,17 +155,17 @@ def conv_step_fused(h_perm: torch.Tensor, x: torch.Tensor,
     hi_o = torch.empty_like(hist_im)
     tl_o = torch.empty_like(tail)
     mx = torch.empty(s, **f32)
-    ring = torch.empty(s, p - 1, cin, 2, k, **f32)
-    cur = torch.empty(s, cin, 2, k, **f32)
-    acc = torch.empty(s, cout, 2, k, **f32)
+    # Scratch spectra of the forward and the MAC.
+    xs = torch.empty(s, t, cin, 2, k, **f32)
+    ys = torch.empty(s, t, cout, 2, k, **f32)
     pt = plan_tensors(n, dev)
     P_, I_ = _build.P, _build.I
     fn = _build.function("conv_step", "folve_conv_step",
-                         [P_] * 15 + [I_] * 8 + [P_])
+                         [P_] * 14 + [I_] * 8 + [P_])
     conv_step_fused.launches += 1
     _build.check(fn(*(_build.ptr(a) for a in (
         h_perm, x, hist_re, hist_im, tail, valid, y, hr_o, hi_o, tl_o, mx,
-        ring, cur, acc, pt.packed)), s, p, cin, cout, t, m1, m2,
+        xs, ys, pt.packed)), s, p, cin, cout, t, m1, m2,
         int(hist_t), _build.stream_of(x)), "conv_step_fused")
     return y, hr_o, hi_o, tl_o, mx
 

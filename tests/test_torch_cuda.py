@@ -101,22 +101,49 @@ def test_split_kernels_match_plain_on_card(cuda, rng, fragm, t):
     torch.cuda.synchronize()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("p,t,fragm,hist_t", [
-    (4, 6, 64, False), (5, 2, 256, True), (16, 8, 8192, True),
-])
-def test_fused_kernel_matches_plain_on_card(cuda, rng, p, t, fragm, hist_t):
-    hp, x, hr, hi, tail, valid = _fused_inputs(rng, p, t, fragm, 2, 2)
+def _fused_case(cuda, rng, p, t, fragm, hist_t, cin=2, cout=2, s=3):
+    """Kernel 1's inputs on the card, the hist in the layout ``hist_t``
+    names."""
+    hp, x, hr, hi, tail, valid = _fused_inputs(rng, p, t, fragm, cin, cout, s)
     if hist_t:
         rows, m2, m1, cols = tcs.fused_preshape(2 * fragm)
-        hr, hi = (np.ascontiguousarray(h.reshape(3, p - 1, 2, m1, cols).swapaxes(-1, -2))
+        hr, hi = (np.ascontiguousarray(h.reshape(s, p - 1, cin, m1, cols).swapaxes(-1, -2))
                   for h in (hr, hi))
     args = [_t(a).to(cuda) for a in (hp, x, hr, hi, tail)]
-    v = torch.from_numpy(valid).to(cuda)
-    got = tcs.conv_step_fused(*args, v, 2 * fragm, hist_t=hist_t)
-    ref = tcs.conv_step_fused_plain(*args, v, 2 * fragm, hist_t=hist_t)
+    return (*args, torch.from_numpy(valid).to(cuda), 2 * fragm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,t,fragm,hist_t,cin,cout,s", [
+    (4, 6, 64, False, 2, 2, 3),      # T > P-1
+    (5, 2, 256, True, 2, 2, 3),      # T < P-1
+    (4, 3, 64, True, 2, 2, 2),       # T = P-1
+    (3, 1, 64, False, 2, 2, 1),      # T = 1, S = 1
+    (3, 4, 128, True, 1, 2, 2),      # upmix
+    (20, 5, 64, False, 1, 1, 3),     # passes of partitions
+    (9, 20, 64, True, 1, 16, 3),     # chunk groups
+    (16, 8, 8192, True, 2, 2, 3),    # the flagship width
+    (16, 1, 8192, False, 2, 2, 1),   # the lone stream, T = 1
+    (16, 8, 8192, False, 2, 2, 1),   # the lone stream, T = 8
+])
+def test_fused_kernel_matches_plain_on_card(cuda, rng, p, t, fragm, hist_t, cin, cout, s):
+    args = _fused_case(cuda, rng, p, t, fragm, hist_t, cin, cout, s)
+    got = tcs.conv_step_fused(*args, hist_t=hist_t)
+    ref = tcs.conv_step_fused_plain(*args, hist_t=hist_t)
     torch.cuda.synchronize()
     assert _rel_err(got, ref) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist_t", [True, False])
+def test_fused_kernel_repeat_calls_bit_identical(cuda, rng, hist_t):
+    """The overlap-add's atomics add two terms per sample, so two calls
+    on the same inputs agree bit for bit."""
+    args = _fused_case(cuda, rng, 16, 8, 8192, hist_t)
+    first = tcs.conv_step_fused(*args, hist_t=hist_t)
+    second = tcs.conv_step_fused(*args, hist_t=hist_t)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
