@@ -6,12 +6,16 @@ Phases (any failure exits nonzero; no phase's exception is caught):
   build        build the eight CUDA kernels from folve_tpu_torch/engine/kernels/csrc
   kernels      each kernel against its plain PyTorch version at the flagship
                shapes (131,072-tap stereo, fragm 8192, P 16, S 8 x T 8; the
-               window MAC at P 1 and at P 128 x T 64; the row-window FFTs for
-               each of 4 freq shards), with times (back to back, and from
-               a CUDA graph), bounds, and the torch.fft and torch.einsum
-               yardsticks; the fused kernel also at S 1 with T 1 and T 8,
-               in both hist layouts, two calls held bit-identical, and
-               against the split kernels 2 -> 3 -> 4 on the same inputs
+               split MAC with per-stream and shared H and at one freq
+               shard's 2,080 bins; the window MAC at P 1 and at P 128 x
+               T 64; the row-window FFTs for each of 4 freq shards), with
+               times (back to back, and from a CUDA graph), bounds, and the
+               torch.fft and torch.einsum yardsticks; both MACs also at
+               their edges (P 13 with T 5, T 11, Cin 1 with Cout 16) and
+               two calls of each MAC case held bit-identical; the fused
+               kernel also at S 1 with T 1 and T 8, in both hist layouts,
+               two calls held bit-identical, and against the split
+               kernels 2 -> 3 -> 4 on the same inputs
   serve_shared 8 streams of one filter through DeviceScheduler (fused kernel)
   serve_mixed  8 streams of two filters of one shape (split kernels)
   processor    a lone SoundProcessor: pump_chunk at 16 and 24 bits, then the
@@ -29,8 +33,9 @@ Every serving phase holds the output to -90 dB against a float64 oracle and
 runs no plain MAC on a CUDA tensor.  Prints the card's name and power limit
 first, each phase's seconds, a "fused_vs_split" JSON line (kernel 1's graph
 time beside kernels 2 + 3 + 4's, and the serve_shared and serve_mixed steady
-steps), a "kernels" JSON line before the last line, and as the last line
-{"ok": true, "device": {...}}.
+steps), each MAC kernel's ptxas registers and spills, a "kernels" JSON
+line before the last line, and as the last line {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -335,26 +340,16 @@ def phase_kernels(dev, results: dict) -> dict:
         library_ms=time_ms(rfft_call, 20), library_graph_ms=graph_ms(rfft_call, 20),
         library="torch.fft.rfft", bound_ms=bms, bound_by=bby)
 
-    # Kernel 3: FDL MAC with per-stream filters (mixed batch).
-    h = cu(rng.standard_normal((S, P, CIN, COUT, 2, K)) / 64)
-    hr, hi = cu(rng.standard_normal((S, P - 1, CIN, K))), cu(rng.standard_normal((S, P - 1, CIN, K)))
-    xr, xi = cu(rng.standard_normal((S, T, CIN, K))), cu(rng.standard_normal((S, T, CIN, K)))
-    got = fdl_mac_split(h, hr, hi, xr, xi)
-    ref = fdl_mac_split_plain(h, hr, hi, xr, xi)
-    err = check_kernel("fdl_mac_split", got, ref)
-    flops = 8.0 * S * T * COUT * P * CIN * K
-    nbytes = 4.0 * (h.numel() + 2 * hr.numel() + 2 * xr.numel() + 2 * S * T * COUT * K)
-    bms, bby = bound(flops, nbytes)
-    lib, lib_out = mac_einsum(h, torch.cat([hr, xr], dim=1), torch.cat([hi, xi], dim=1), T)
-    check_kernel("fdl_mac_split yardstick (torch.einsum)", lib_out, ref)
+    # Kernel 3: FDL MAC with per-stream filters (serve_mixed's batch, the
+    # row's numbers), with one shared filter, and at one freq shard's
+    # bins (the sharded phase's shared bank); then the edge cases.
+    mixed = mac_case(cu, rng, "split", S, P, T, shared=False)
+    cases = [mixed, mac_case(cu, rng, "split", S, P, T, shared=True),
+             mac_case(cu, rng, "split", S, P, T, shared=True, k=K // FREQ)]
+    cases += mac_edge_cases(cu, rng, "split")
     results["fdl_mac_split"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: fdl_mac_split(h, hr, hi, xr, xi), 20),
-        graph_ms=graph_ms(lambda: fdl_mac_split(h, hr, hi, xr, xi), 20),
-        plain_ms=time_ms(lambda: fdl_mac_split_plain(h, hr, hi, xr, xi), 5),
-        library_ms=time_ms(lib, 20), library_graph_ms=graph_ms(lib, 10),
-        library="torch.einsum over complex64, hist and new spectra concatenated "
-                "and the window unfolded beforehand",
-        bound_ms=bms, bound_by=bby)
+        {k: v for k, v in mixed.items() if k not in ("shape", "bit_identical")},
+        max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
 
     # Kernel 4: inverse + overlap-add of the mixed path's MAC output.
     yr, yi = cu(rng.standard_normal((S, T, COUT, K))), cu(rng.standard_normal((S, T, COUT, K)))
@@ -421,44 +416,98 @@ def phase_kernels(dev, results: dict) -> dict:
     return fused_vs_split(cu, rng)
 
 
-def mac_case(cu, rng, s: int, p: int, t: int, shared: bool) -> dict:
-    """Kernel 5 against its plain version at one shape, with its bound:
-    H, the window and Y each moved once, 8 FLOP per complex term.  ``ms``
-    is a stream of 200 back-to-back calls, host time per launch included;
-    ``graph_ms`` the same calls replayed from a CUDA graph, device time
-    alone; ``library_ms`` one torch.einsum (:func:`mac_einsum`)."""
-    h = cu(rng.standard_normal(((p,) if shared else (s, p)) + (CIN, COUT, 2, K))
-           / np.sqrt(p * CIN))
-    xr = cu(rng.standard_normal((s, t + p - 1, CIN, K)))
-    xi = cu(rng.standard_normal((s, t + p - 1, CIN, K)))
-    ref = fdl_mac_plain(h, xr, xi, t)
-    err = check_kernel(f"fdl_mac(S={s}, P={p}, T={t})", fdl_mac(h, xr, xi, t), ref)
+def mac_case(cu, rng, kind: str, s: int, p: int, t: int, shared: bool,
+             cin: int = CIN, cout: int = COUT, k: int = K, timed: bool = True) -> dict:
+    """Kernel 3 (``kind`` "split": hist and new spectra apart) or 5
+    ("window": one concatenated window) against its plain version at one
+    shape, and two calls held bit for bit.  With ``timed``, its bound
+    (H, the window and Y each moved once, 8 FLOP per complex term) and
+    times: ``ms`` a stream of back-to-back calls, host time per launch
+    included; ``graph_ms`` the same calls replayed from a CUDA graph,
+    device time alone; ``library_ms`` one torch.einsum
+    (:func:`mac_einsum`)."""
+    h = cu(rng.standard_normal(((p,) if shared else (s, p)) + (cin, cout, 2, k))
+           / np.sqrt(p * cin))
+    xr = cu(rng.standard_normal((s, t + p - 1, cin, k)))
+    xi = cu(rng.standard_normal((s, t + p - 1, cin, k)))
+    if kind == "split":
+        hr, nr, hi, ni = (a[:, sl].contiguous() for a in (xr, xi)
+                          for sl in (slice(0, p - 1), slice(p - 1, None)))
+        call = lambda: fdl_mac_split(h, hr, hi, nr, ni)
+        plain = lambda: fdl_mac_split_plain(h, hr, hi, nr, ni)
+    else:
+        call = lambda: fdl_mac(h, xr, xi, t)
+        plain = lambda: fdl_mac_plain(h, xr, xi, t)
+    name = (f"{'fdl_mac_split' if kind == 'split' else 'fdl_mac'}(S={s}, P={p}, T={t}, "
+            f"Cin={cin}, Cout={cout}, K={k}, {'shared' if shared else 'per-stream'} H)")
+    ref = plain()
+    got, again = call(), call()
+    err = check_kernel(name, got, ref)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    log(f"  {name}: two calls bit-identical: {same}")
+    assert same, f"{name} differs between two calls on the same inputs"
+    case = dict(shape=dict(S=s, P=p, T=t, Cin=cin, Cout=cout, K=k, shared_filter=shared),
+                max_abs_err=err, bit_identical=same)
+    if not timed:
+        return case
     lib, lib_out = mac_einsum(h, xr, xi, t)
-    check_kernel(f"fdl_mac(S={s}, P={p}, T={t}) yardstick (torch.einsum)", lib_out, ref)
-    bms, bby = bound(8.0 * s * t * COUT * p * CIN * K,
-                     4.0 * (h.numel() + 2 * xr.numel() + 2 * s * t * COUT * K))
-    return dict(shape=dict(S=s, P=p, T=t, Cin=CIN, Cout=COUT, K=K,
-                           shared_filter=shared),
-                max_abs_err=err, ms=time_ms(lambda: fdl_mac(h, xr, xi, t), 200),
-                graph_ms=graph_ms(lambda: fdl_mac(h, xr, xi, t), 50),
-                plain_ms=time_ms(lambda: fdl_mac_plain(h, xr, xi, t), 3),
+    check_kernel(f"{name} yardstick (torch.einsum)", lib_out, ref)
+    bms, bby = bound(8.0 * s * t * cout * p * cin * k,
+                     4.0 * (h.numel() + 2 * xr.numel() + 2 * s * t * cout * k))
+    return dict(case, ms=time_ms(call, 200), graph_ms=graph_ms(call, 50),
+                plain_ms=time_ms(plain, 3),
                 library_ms=time_ms(lib, 20), library_graph_ms=graph_ms(lib, 10),
-                library="torch.einsum over complex64, the window unfolded beforehand",
+                library=("torch.einsum over complex64, the window ("
+                         + ("hist and new spectra concatenated, " if kind == "split" else "")
+                         + "unfolded) built beforehand"),
                 bound_ms=bms, bound_by=bby)
+
+
+def mac_edge_cases(cu, rng, kind: str) -> list:
+    """A MAC kernel against its plain version where its tiles have edges:
+    P = 13 with T = 5 (P and T not multiples of 8), T = 11 (a masked
+    tail chunk), and Cin = 1 with Cout = 16 (16 warps for one stream and
+    chunk), with per-stream and shared H, at a bin count that is no
+    multiple of 32."""
+    k = K // FREQ + 5
+    return [mac_case(cu, rng, kind, 3, 13, 5, shared=False, k=k, timed=False),
+            mac_case(cu, rng, kind, 3, 13, 11, shared=True, k=k, timed=False),
+            mac_case(cu, rng, kind, 3, 9, 20, shared=True, cin=1, cout=16, k=k,
+                     timed=False)]
 
 
 def kernels_window_mac(cu, rng, results: dict) -> None:
     # Kernel 5 at serve_short's shapes (an 8,192-tap filter: P = 1, the
     # window is the new spectra; one shared filter, then per-stream
     # spectra as in its two-filter batch) and at the deep phase's
-    # (P = 128, T = 64).
-    short = mac_case(cu, rng, S, 1, T, shared=True)
-    mixed = mac_case(cu, rng, S, 1, T, shared=False)
-    deep = mac_case(cu, rng, 1, DEEP_SIZE // FRAGM, DEEP_T, shared=True)
-    cases = [short, mixed, deep]
+    # (P = 128, T = 64); then the edge cases.
+    short = mac_case(cu, rng, "window", S, 1, T, shared=True)
+    mixed = mac_case(cu, rng, "window", S, 1, T, shared=False)
+    deep = mac_case(cu, rng, "window", 1, DEEP_SIZE // FRAGM, DEEP_T, shared=True)
+    cases = [short, mixed, deep] + mac_edge_cases(cu, rng, "window")
     results["fdl_mac"] = dict(
-        {k: v for k, v in short.items() if k != "shape"},
+        {k: v for k, v in short.items() if k not in ("shape", "bit_identical")},
         max_abs_err=max(c["max_abs_err"] for c in cases), cases=cases)
+
+
+def ptxas_report(source: str) -> dict:
+    """Per kernel of ``csrc/<source>.cu`` (mangled name): registers, stack
+    frame and spill bytes, from the ptxas report of this run's build."""
+    out, name = {}, None
+    for line in _build.build_log.get(source, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w.$]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def kernels_row_windows(cu, rng, results: dict) -> None:
@@ -913,9 +962,18 @@ def main() -> int:
     for name in ("fft_real_half", "fdl_mac_split", "ifft_ola"):
         results[name]["launches"] = mixed["launches"][name]
         callers[name] = "serve_mixed"
+    results["fdl_mac_split"]["launches_by_phase"] = dict(
+        serve_mixed=mixed["launches"]["fdl_mac_split"],
+        sharded=sharded["launches"]["fdl_mac_split"])
     results["fdl_mac"]["launches"] = short["launches"] + deep["launches"]
     results["fdl_mac"]["launches_by_phase"] = dict(
         serve_short=short["launches"], deep=deep["launches"])
+    # Each MAC kernel's registers and spills (one template body, two
+    # window-row loaders: SplitRows for kernel 3, WindowRows for 5).
+    ptxas = ptxas_report("fdl_mac")
+    for name, rows in (("fdl_mac_split", "SplitRows"), ("fdl_mac", "WindowRows")):
+        results[name]["ptxas"] = {n: v for n, v in ptxas.items() if rows in n}
+        log(f"  {name} ptxas: {results[name]['ptxas']}")
     for name in ("fft_real_half_rows", "ifft_partial_rows"):
         results[name]["launches"] = sharded["launches"][name]
     results["ifft_from_half"]["launches"] = None

@@ -31,8 +31,9 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict = {}
-# Per-source ptxas report (registers, shared memory, spills) and build
-# seconds of the last build in this process.
+# Per-source ptxas report (registers, shared memory, spills) of the build
+# that made each loaded library (kept beside it), and the build seconds
+# of the last build in this process.
 build_log: dict = {}
 build_seconds: float | None = None
 
@@ -83,10 +84,14 @@ def build_all() -> dict:
                 failed.append(f"{name}.cu:\n{log}")
                 continue
             os.replace(tmp, out)
+            out.with_suffix(".log").write_text(log)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for name in SOURCES:
-            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            lib = _lib_path(name)
+            _libs[name] = ctypes.CDLL(str(lib))
+            if name not in build_log and lib.with_suffix(".log").exists():
+                build_log[name] = lib.with_suffix(".log").read_text()
         build_seconds = time.perf_counter() - t0
         return _libs
 

@@ -22,10 +22,16 @@ flagship shape (P = 16, Cin = Cout = 2, K = 8320, T = 8, one stream) that
 is 5.9 MB for 34 MFLOP, ~6 FLOP per byte, below the card's balance.  At
 P = 128 and T = 64 (one stream) the window kernel's 2.2 GFLOP against
 ~68 MB make it bound by operations instead.
-Design: one thread per (bin, t, stream) with neighbouring threads on
-neighbouring bins, so every load is coalesced and each stream's
-spectra stream through once; the p, Cin and Cout loops stay in
-registers, and the T re-reads of a bin's H hit L2.
+Design: both kernels run one tiled body and differ only in where a
+window row comes from.  A block takes a tile of bins and a group of
+streams and chunks of 8 blocks t; per input channel and pass of
+partitions it stages H's tile and the window rows in shared memory, and
+each warp keeps the sums of (stream, output channel, 8 blocks) for 32
+bins in registers while the window rows slide through registers.  Each
+H value is read from device memory once per block, so once per call at
+the shapes the engine runs; a block with per-stream H takes one stream
+and a wider tile of bins (the source's header says how the launcher
+picks the tile).
 """
 
 from __future__ import annotations

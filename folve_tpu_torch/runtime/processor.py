@@ -10,6 +10,7 @@ max output value for clipping detection.
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -18,6 +19,7 @@ import torch
 
 from folve_tpu_torch.engine.device import resolve_device
 from folve_tpu_torch.engine.stream import (
+    StreamState,
     eager_h_perm,
     init_state,
     single_chunk_step,
@@ -57,6 +59,13 @@ def _is_quantized(y: torch.Tensor) -> bool:
     return not y.dtype.is_floating_point
 
 
+def _mtime(path: str) -> float:
+    try:
+        return os.stat(path).st_mtime
+    except OSError:
+        return 0.0
+
+
 def _to_host_async(y: torch.Tensor):
     """Start the device->host copy of ``y`` into pinned memory; returns
     ``(host_tensor, event)`` (event None when ``y`` is already on the
@@ -93,6 +102,7 @@ class SoundProcessor:
     def __init__(self, compiled: CompiledFilter, config_file: str,
                  scheduler=None):
         self.config_file = config_file
+        self.config_file_timestamp = _mtime(config_file)
         self.bank = compiled.bank
         # Optional DeviceScheduler: routes block work into batched device
         # steps shared with other concurrently-pumping streams.
@@ -118,6 +128,14 @@ class SoundProcessor:
     # -- introspection ----------------------------------------------------
 
     @property
+    def input_channels(self) -> int:
+        return self.bank.ninp
+
+    @property
+    def output_channels(self) -> int:
+        return self.bank.nout
+
+    @property
     def fragm(self) -> int:
         return self.bank.fragm
 
@@ -126,6 +144,9 @@ class SoundProcessor:
         if self._output_pos < 0:
             return 0
         return self.fragm - self._output_pos
+
+    def is_input_buffer_complete(self) -> bool:
+        return self._input_pos == self.fragm
 
     def max_output_value(self) -> float:
         # Read-only peek: a pending scheduler step's state is read off its
@@ -136,6 +157,20 @@ class SoundProcessor:
         if fut is not None:
             st = fut.result()[0]
         return max(self._max_out, float(st.max_abs))
+
+    def reset_max_values(self) -> None:
+        """Clear only the clipping monitor; the convolution state (hist
+        and tail) is untouched."""
+        self._resolve_inflight_state()
+        self._max_out = 0.0
+        st = self._state
+        self._state = StreamState(hist_re=st.hist_re, hist_im=st.hist_im,
+                                  tail=st.tail,
+                                  max_abs=torch.zeros_like(st.max_abs))
+
+    def config_still_up_to_date(self) -> bool:
+        """False once the config file's mtime has changed."""
+        return self.config_file_timestamp == _mtime(self.config_file)
 
     # -- factory ----------------------------------------------------------
 
@@ -154,6 +189,15 @@ class SoundProcessor:
         return cls(compiled, config_file)
 
     # -- block pump -------------------------------------------------------
+
+    def _resolve_inflight_state(self) -> None:
+        """Fold a pending scheduler step's new state into ``_state``
+        without emitting its audio (the emit stays queued)."""
+        fl = self._inflight
+        if fl is not None and fl.future is not None:
+            state, y = fl.future.result()
+            self._state = state
+            fl.y, fl.future = y, None
 
     def _step(self, x: np.ndarray, n_valid: int):
         return single_chunk_step(self.bank, self._state, x, n_valid,

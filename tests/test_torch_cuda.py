@@ -189,6 +189,39 @@ def test_window_mac_matches_plain_on_card(cuda, rng, p, t, s, shared):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["split", "window"])
+@pytest.mark.parametrize("s,p,t,cin,cout,k,shared", [
+    (3, 13, 5, 2, 2, 2085, False),   # P and T not multiples of 8, K of 32
+    (3, 13, 11, 2, 2, 2085, True),   # a masked tail chunk
+    (3, 9, 20, 1, 16, 2085, True),   # 16 warps for one stream and chunk
+    (3, 4, 3, 4, 4, 100, False),     # Cin = Cout = 4, T = P-1
+    (2, 2, 1, 2, 2, 70, True),       # P = 2, T = 1
+    (8, 16, 8, 2, 2, 8320, False),   # the flagship's mixed batch
+    (8, 16, 8, 2, 2, 2080, True),    # one freq shard's bins
+])
+def test_mac_kernels_edges_on_card(cuda, rng, kind, s, p, t, cin, cout, k, shared):
+    """Both MAC kernels where their tiles have edges, against their plain
+    versions; two calls on the same inputs agree bit for bit (no
+    atomics)."""
+    cu = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    h = cu(*((p,) if shared else (s, p)), cin, cout, 2, k)
+    xr, xi = cu(s, t + p - 1, cin, k), cu(s, t + p - 1, cin, k)
+    if kind == "split":
+        hr, nr, hi, ni = (a[:, sl].contiguous() for a in (xr, xi)
+                          for sl in (slice(0, p - 1), slice(p - 1, None)))
+        call = lambda: fdl_mac_split(h, hr, hi, nr, ni)
+        ref = fdl_mac_split_plain(h, hr, hi, nr, ni)
+    else:
+        call = lambda: fdl_mac(h, xr, xi, t)
+        ref = fdl_mac_plain(h, xr, xi, t)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert _rel_err(first, ref) < 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fragm", FRAGMS)
 @pytest.mark.parametrize("freq", [2, 4, 8])
 def test_row_window_ffts_match_plain_on_card(cuda, rng, fragm, freq):
