@@ -27,13 +27,24 @@ Phases (any failure exits nonzero; no phase's exception is caught):
   sharded      the flagship through DeviceScheduler on a mesh of 4 freq shards
                of the card (row-window FFT kernels), held against the
                single-device split route
+  filesystem   FolveFilesystem on the card serving 8 FLAC tracks of 60 s (4 at
+               16 bits, 4 at 24) through the flagship filter, one reader
+               thread per track, as a player reads (open, stat, 64 KiB reads
+               to EOF, close): "shared" (one filter, fused kernel), "mixed"
+               (two filters in toplevel-dir mode, split kernels), "gapless"
+               (an album of three 20 s tracks read in order) and "warm" (a
+               new filesystem that loads the spectra from the cache the cold
+               opens wrote); 16-bit tracks within 1 LSB of the float64
+               oracle, 24-bit at -90 dB or better; a "filesystem" JSON line
+               with served realtime factors and first-read latencies
   dryrun       entry.dryrun_multichip(8) with its default device: a mesh of
                eight entries of the card, held to the engine step
 Every serving phase holds the output to -90 dB against a float64 oracle and
 runs no plain MAC on a CUDA tensor.  Prints the card's name and power limit
-first, each phase's seconds, a "fused_vs_split" JSON line (kernel 1's graph
-time beside kernels 2 + 3 + 4's, and the serve_shared and serve_mixed steady
-steps), each MAC kernel's ptxas registers and spills, a "kernels" JSON
+first, each phase's seconds, a "filesystem" JSON line, a "fused_vs_split"
+JSON line (kernel 1's graph time beside kernels 2 + 3 + 4's, and the
+serve_shared and serve_mixed steady steps), each MAC kernel's ptxas
+registers and spills, a "kernels" JSON
 line before the last line, and as the last line {"ok": true, "device":
 {...}}.
 """
@@ -44,6 +55,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -53,6 +65,8 @@ import time
 import numpy as np
 import torch
 
+from folve_tpu_torch.audio.types import SampleCodec
+from folve_tpu_torch.audio.wav import write_wav
 from folve_tpu_torch.engine.kernels import _build
 from folve_tpu_torch.engine.kernels.conv_step import (
     conv_step_fused,
@@ -96,6 +110,13 @@ SNR_LIMIT_DB = -90.0
 FREQ = 4            # freq shards of the sharded phase
 SHORT_SIZE = 8192   # one fragment: P = 1
 DEEP_SIZE, DEEP_T = 1 << 20, 64  # MAXSIZE: P = 128
+# The filesystem phase: 8 tracks of 60 s (cut from a typical 4-minute
+# track to bound the float64 oracle's time), an album of three 20 s
+# tracks, a Gaussian level whose oracle peak stays below 0.9 of full
+# scale, and the served bytes that make the first-read latency.
+FS_TRACKS, FS_SECONDS, FS_ALBUM_SECONDS = 8, 60, 20
+FS_LEVEL = 0.1
+FS_FIRST_BYTES = 65536
 
 KERNELS = {
     "conv_step_fused": dict(
@@ -581,18 +602,6 @@ def kernels_row_windows(cu, rng, results: dict) -> None:
         library="torch.fft.irfft", bound_ms=bms, bound_by=bby)
 
 
-def write_float_wav(path: str, data: np.ndarray, rate: int) -> None:
-    """IEEE float32 WAV writer (the port reads WAVs only)."""
-    data = np.ascontiguousarray(data, dtype="<f4")
-    ch = data.shape[1]
-    fmt = np.array([3, ch], "<u2").tobytes() + np.array(
-        [rate, rate * ch * 4], "<u4").tobytes() + np.array([ch * 4, 32], "<u2").tobytes()
-    body = (b"WAVE" + b"fmt " + np.uint32(len(fmt)).tobytes() + fmt
-            + b"data" + np.uint32(data.nbytes).tobytes() + data.tobytes())
-    with open(path, "wb") as f:
-        f.write(b"RIFF" + np.uint32(len(body)).tobytes() + body)
-
-
 def make_ir(seed: int, size: int) -> np.ndarray:
     """A seeded true-stereo IR of ``size`` taps: decaying noise, float32
     [Cin, Cout, size]."""
@@ -611,7 +620,7 @@ def make_config(tmp: str, name: str, seed: int,
     size = SIZE if size is None else size
     ir = make_ir(seed, size)
     wav = os.path.join(tmp, f"{name}.wav")
-    write_float_wav(wav, ir.reshape(CIN * COUT, size).T, RATE)
+    write_wav(wav, ir.reshape(CIN * COUT, size).T, RATE, SampleCodec.FLOAT)
     lines = [f"/convolver/new {CIN} {COUT} {FRAGM} {size}"]
     for i in range(CIN):
         for o in range(COUT):
@@ -884,6 +893,287 @@ def phase_sharded(dev, tmp: str) -> dict:
     return dict(launches=c, snr_db=worst, rel_vs_split=rel)
 
 
+class FsOracle:
+    """float64 linear convolution of a track with one filter's IR through
+    scipy.fft (the IR's spectra cached per transform length), truncated
+    to the track: x [n, Cin] -> [n, Cout]."""
+
+    def __init__(self, ir: np.ndarray):
+        self.ir, self.spectra = ir.astype(np.float64), {}
+
+    def __call__(self, x: np.ndarray) -> np.ndarray:
+        from scipy import fft as sfft
+
+        n = x.shape[0]
+        nfft = sfft.next_fast_len(n + self.ir.shape[-1] - 1, real=True)
+        h = self.spectra.get(nfft)
+        if h is None:
+            h = self.spectra[nfft] = sfft.rfft(self.ir, nfft, axis=-1, workers=-1)
+        xs = sfft.rfft(x.T.astype(np.float64), nfft, axis=-1, workers=-1)
+        y = np.einsum("if,iof->of", xs, h)
+        return sfft.irfft(y, nfft, axis=-1, workers=-1)[:, :n].T
+
+
+def fs_read(fs, path: str) -> dict:
+    """Read ``path`` as a player does: open, stat, 64 KiB reads from the
+    start until EOF, close.  ``first_s``: open plus the reads that bring
+    the first FS_FIRST_BYTES of the served file."""
+    t0 = time.perf_counter()
+    h = fs.get_or_create_handler(path)
+    try:
+        h.stat()  # a player stats before it reads
+        out, first_s = bytearray(), None
+        while True:
+            data = h.read(65536, len(out))
+            if not data:
+                break
+            out += data
+            if first_s is None and len(out) >= FS_FIRST_BYTES:
+                first_s = time.perf_counter() - t0
+        return dict(handler=h, blob=bytes(out), first_s=first_s,
+                    status=h.get_handler_status(), t0=t0, t1=time.perf_counter())
+    finally:
+        fs.close_handler(path, h)
+
+
+def fs_read_all(fs, paths: list) -> tuple[dict, float]:
+    """Every path read from its own thread at once; returns ({path: result
+    of fs_read}, wall seconds from the first open to the last EOF).  An
+    exception in any reader is raised here."""
+    results, errors = {}, []
+
+    def reader(path):
+        try:
+            results[path] = fs_read(fs, path)
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=reader, args=(p,)) for p in paths]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    if errors:
+        raise errors[0]
+    assert not any(th.is_alive() for th in threads), "a reader never finished"
+    wall = max(r["t1"] for r in results.values()) - min(r["t0"] for r in results.values())
+    return results, wall
+
+
+def fs_check(name: str, res: dict, x: np.ndarray, bits: int, ref: np.ndarray) -> float:
+    """The served bytes decode to the source's frames, rate and bits, and
+    hold to the float64 oracle: 16-bit within 1 LSB of the oracle
+    quantized on the host, 24-bit at SNR_LIMIT_DB or better.  Returns the
+    16-bit LSB error or the 24-bit SNR in dB."""
+    from folve_tpu_torch.audio.flac import read_flac
+    from folve_tpu_torch.runtime import ConvolveFileHandler
+
+    assert isinstance(res["handler"], ConvolveFileHandler), f"{name}: not convolved"
+    y, info = read_flac(res["blob"])
+    assert (info.frames, info.rate, info.channels, info.bits_per_sample) == (
+        x.shape[0], RATE, COUT, bits), f"{name}: served {info}"
+    assert np.all(np.isfinite(y))
+    if bits == 16:
+        want = np.clip(np.round(ref * 32768.0), -32768, 32767)
+        err = float(np.max(np.abs(np.round(y.astype(np.float64) * 32768.0) - want)))
+        assert err <= 1, f"{name}: 16-bit PCM off the oracle by {err} LSB"
+        return err
+    snr = snr_db(ref, y)
+    assert snr <= SNR_LIMIT_DB, f"{name}: 24-bit SNR {snr:.2f} dB"
+    return snr
+
+
+def fs_step_report(step: str, fs, results: dict, wall: float, c: dict, smi: str) -> dict:
+    sched = fs.device_scheduler
+    frames = sum(r["handler"]._in_info.frames for r in results.values())
+    audio_s = frames / RATE
+    steps_ms = [1e3 * v for v in sched.latency._recent]
+    out = dict(tracks=len(results), audio_s=audio_s, wall_s=wall,
+               served_realtime=audio_s / wall,
+               first_read_s=sorted(r["first_s"] for r in results.values()),
+               scheduler=dict(steps=sched.steps, fused_steps=sched.fused_steps,
+                              fused_fast_steps=sched.fused_fast_steps,
+                              batched_jobs=sched.batched_jobs,
+                              step_ms_median=float(np.median(steps_ms)) if steps_ms else None,
+                              step_ms_max=max(steps_ms, default=None)),
+               fused_route_launches=c["conv_step_fused"],
+               split_route_launches=c["fdl_mac_split"], launches=c, card=smi,
+               # Host seconds summed over the readers (threads overlap):
+               # the pump's dispatch and wait, device->host fetch, encode.
+               pump_s={k: sum(getattr(r["status"], f"pump_{k}_s") for r in results.values())
+                       for k in ("dispatch", "fetch", "encode")},
+               reader_s=sum(r["t1"] - r["t0"] for r in results.values()))
+    log(f"  {step}: {len(results)} tracks, {audio_s:.1f} s of audio in {wall:.3f} s: "
+        f"served realtime factor {out['served_realtime']:.1f}; scheduler "
+        f"{out['scheduler']}; first-read s {[round(v, 3) for v in out['first_read_s']]}; "
+        f"reader s {out['reader_s']:.3f} of which pump s {out['pump_s']}; "
+        f"launches {c} ({smi})")
+    no_plain_mac(f"filesystem {step}")
+    return out
+
+
+def fs_tracks(src: str, seed: int, names: list, frames: list, bits: list,
+              sub: str = "") -> dict:
+    """Seeded stereo FLAC tracks written with the port's encoder; returns
+    {name: samples as decoded, float32 [frames, 2]}.  Gaussian at
+    FS_LEVEL of full scale, on the track's PCM grid."""
+    from folve_tpu_torch.audio.flac import write_flac
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(src, sub), exist_ok=True)
+    out = {}
+    for name, n, b in zip(names, frames, bits):
+        scale = float(1 << (b - 1))
+        x = np.clip(FS_LEVEL * rng.standard_normal((n, CIN)), -0.99, 0.99)
+        x = (np.round(x * scale) / scale).astype(np.float32)
+        write_flac(os.path.join(src, sub, name), x, RATE, bits=b)
+        out[name] = x
+    return out
+
+
+def phase_filesystem(dev, smi: str) -> dict:
+    log(f"phase filesystem: FolveFilesystem serving {FS_TRACKS} FLAC tracks of "
+        f"{FS_SECONDS} s (16 and 24 bits) through the {SIZE}-tap filter: shared, "
+        "mixed, gapless, warm")
+    from folve_tpu_torch.filters import compiler
+    from folve_tpu_torch.runtime import ConvolveFileHandler, FolveFilesystem
+
+    tmp = tempfile.mkdtemp(prefix="folve_chip_smoke_fs_")
+    old_cache = os.environ.get("FOLVE_SPECTRA_CACHE")
+    os.environ["FOLVE_SPECTRA_CACHE"] = os.path.join(tmp, "spectra")  # cold
+    filters, src = os.path.join(tmp, "filters"), os.path.join(tmp, "src")
+    irs = {}
+    for name, seed in (("A", 91), ("B", 92)):
+        os.makedirs(os.path.join(filters, name))
+        irs[name] = make_config(os.path.join(filters, name), f"filter-{RATE}", seed)[1]
+    oracles = {name: FsOracle(ir) for name, ir in irs.items()}
+    names = [f"t{i}.flac" for i in range(FS_TRACKS)]
+    bits = [16 if i < FS_TRACKS // 2 else 24 for i in range(FS_TRACKS)]
+    tracks = fs_tracks(src, 93, names, [FS_SECONDS * RATE] * FS_TRACKS, bits)
+    refs = {}
+
+    def ref(filt: str, name: str) -> np.ndarray:
+        if (filt, name) not in refs:
+            refs[filt, name] = oracles[filt](tracks[name])
+            peak = float(np.max(np.abs(refs[filt, name])))
+            assert peak < 0.9, f"oracle peak {peak:.3f} of full scale (limit 0.9)"
+        return refs[filt, name]
+
+    def new_fs(**kw):
+        fs = FolveFilesystem(device=dev)
+        fs.underlying_dir, fs.base_config_dir = src, filters
+        for k, v in kw.items():
+            setattr(fs, k, v)
+        assert fs.check_initialized()
+        return fs
+
+    out, lsb, snr = {}, {}, {}
+
+    def check(step: str, res: dict, name: str, b: int, filt: str) -> None:
+        v = fs_check(f"{step} {name}", res, tracks[name], b, ref(filt, name))
+        (lsb if b == 16 else snr)[f"{step} {name}"] = v
+    try:
+        # 1. shared: one filter, one reader thread per track.
+        fs = new_fs(current_config_subdir="A")
+        reset_counts()
+        res, wall = fs_read_all(fs, [f"/{n}" for n in names])
+        c = counts()
+        out["shared"] = fs_step_report("shared", fs, res, wall, c, smi)
+        out["cold_first_read_s"] = out["shared"]["first_read_s"][0]
+        assert c["conv_step_fused"] > 0, "shared: fused kernel never launched"
+        for n, b in zip(names, bits):
+            check("shared", res[f"/{n}"], n, b, "A")
+        cold_spec = [cf.bank.h_spec for cf in fs.processor_pool._bank_cache.values()]
+        assert len(cold_spec) == 1, "shared: the filter was compiled more than once"
+        fs.device_scheduler.stop()
+
+        # 2. mixed: two filters of one shape, toplevel-dir mode.
+        fs = new_fs(toplevel_dir_is_filter=True)
+        paths = [f"/{'A' if i < FS_TRACKS // 2 else 'B'}/{n}" for i, n in enumerate(names)]
+        reset_counts()
+        res, wall = fs_read_all(fs, paths)
+        c = counts()
+        out["mixed"] = fs_step_report("mixed", fs, res, wall, c, smi)
+        for k in ("fft_real_half", "fdl_mac_split", "ifft_ola"):
+            assert c[k] > 0, f"mixed: {k} never launched"
+        for p, n, b in zip(paths, names, bits):
+            check("mixed", res[p], n, b, p[1])
+        fs.device_scheduler.stop()
+
+        # 3. gapless: an album of three tracks read in order.
+        album = [f"a{i}.flac" for i in range(1, 4)]
+        lens = [FS_ALBUM_SECONDS * RATE + 1000 * i + 77 for i in range(3)]
+        assert all(n % FRAGM for n in lens)
+        atracks = fs_tracks(src, 94, album, lens, [16] * 3, sub="album")
+        fs = new_fs(current_config_subdir="A", gapless_processing=True)
+        reset_counts()
+        t0, res = time.perf_counter(), {}
+        for n in album:
+            res[f"/album/{n}"] = fs_read(fs, f"/album/{n}")
+        wall = time.perf_counter() - t0
+        c = counts()
+        out["gapless"] = fs_step_report("gapless", fs, res, wall, c, smi)
+        gap = [res[f"/album/{n}"]["status"].out_gapless for n in album]
+        log(f"  gapless: out_gapless per track {gap}")
+        assert gap[:2] == [True, True], "gapless: no handover on tracks 1 and 2"
+        from folve_tpu_torch.audio.flac import read_flac
+
+        ys = []
+        for n, k in zip(album, lens):
+            assert isinstance(res[f"/album/{n}"]["handler"], ConvolveFileHandler), n
+            y, info = read_flac(res[f"/album/{n}"]["blob"])
+            assert (info.frames, info.rate, info.channels, info.bits_per_sample) == (
+                k, RATE, COUT, 16), f"gapless {n}: served {info}"
+            ys.append(y)
+        x_all = np.concatenate([atracks[n] for n in album])
+        want = np.clip(np.round(oracles["A"](x_all) * 32768.0), -32768, 32767)
+        got = np.round(np.concatenate(ys).astype(np.float64) * 32768.0)
+        lsb["gapless album"] = float(np.max(np.abs(got - want)))
+        log(f"  gapless: album of {x_all.shape[0]} frames, max |PCM - oracle of the "
+            f"joined input| = {lsb['gapless album']:.0f} LSB")
+        assert lsb["gapless album"] <= 1, "gapless: the join is off the oracle"
+        fs.device_scheduler.stop()
+
+        # 4. warm: a new filesystem over the same spectra cache.
+        fs = new_fs(current_config_subdir="A")
+        compile_spec = compiler.compile_spec
+
+        def no_compile(*a, **k):
+            raise AssertionError("warm: the filter was compiled, not loaded")
+
+        compiler.compile_spec = no_compile
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            res = {f"/{names[0]}": fs_read(fs, f"/{names[0]}")}
+            wall = time.perf_counter() - t0
+        finally:
+            compiler.compile_spec = compile_spec
+        c = counts()
+        out["warm"] = fs_step_report("warm", fs, res, wall, c, smi)
+        out["warm_first_read_s"] = out["warm"]["first_read_s"][0]
+        check("warm", res[f"/{names[0]}"], names[0], bits[0], "A")
+        warm_spec = [cf.bank.h_spec for cf in fs.processor_pool._bank_cache.values()]
+        assert len(warm_spec) == 1 and torch.equal(warm_spec[0], cold_spec[0]), (
+            "warm: cached spectra differ from the cold compile's")
+        fs.device_scheduler.stop()
+    finally:
+        if old_cache is None:
+            os.environ.pop("FOLVE_SPECTRA_CACHE", None)
+        else:
+            os.environ["FOLVE_SPECTRA_CACHE"] = old_cache
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst_lsb, worst_snr = max(lsb.values()), max(snr.values())
+    log(f"  filesystem: worst 16-bit error {worst_lsb:.0f} LSB (limit 1), worst 24-bit "
+        f"SNR {worst_snr:.2f} dB (limit {SNR_LIMIT_DB}); cold first read "
+        f"{out['cold_first_read_s']:.3f} s, warm first read {out['warm_first_read_s']:.3f} s "
+        f"({smi})")
+    launches = {k: sum(out[s]["launches"][k] for s in ("shared", "mixed", "gapless", "warm"))
+                for k in KERNELS}
+    out.update(worst_lsb=worst_lsb, worst_snr_db=worst_snr, launches=launches)
+    return out
+
+
 def phase_dryrun() -> dict:
     log("phase dryrun: entry.dryrun_multichip(8) on the card")
     from folve_tpu_torch.entry import dryrun_multichip
@@ -951,6 +1241,7 @@ def main() -> int:
         short = run_phase("serve_short", phase_serve_short, dev, tmp)
         deep = run_phase("deep", phase_deep, dev)
         sharded = run_phase("sharded", phase_sharded, dev, tmp)
+    files = run_phase("filesystem", phase_filesystem, dev, smi)
     run_phase("dryrun", phase_dryrun)
     callers = {"conv_step_fused": "serve_shared", "fdl_mac": "serve_short+deep",
                "fft_real_half_rows": "sharded", "ifft_partial_rows": "sharded",
@@ -958,13 +1249,15 @@ def main() -> int:
     results["conv_step_fused"]["launches"] = shared["launches"]["conv_step_fused"]
     results["conv_step_fused"]["launches_by_phase"] = dict(
         serve_shared=shared["launches"]["conv_step_fused"],
-        processor=proc["launches"]["conv_step_fused"])
+        processor=proc["launches"]["conv_step_fused"],
+        filesystem=files["launches"]["conv_step_fused"])
     for name in ("fft_real_half", "fdl_mac_split", "ifft_ola"):
         results[name]["launches"] = mixed["launches"][name]
+        results[name]["launches_by_phase"] = dict(
+            serve_mixed=mixed["launches"][name], filesystem=files["launches"][name])
         callers[name] = "serve_mixed"
-    results["fdl_mac_split"]["launches_by_phase"] = dict(
-        serve_mixed=mixed["launches"]["fdl_mac_split"],
-        sharded=sharded["launches"]["fdl_mac_split"])
+    results["fdl_mac_split"]["launches_by_phase"]["sharded"] = (
+        sharded["launches"]["fdl_mac_split"])
     results["fdl_mac"]["launches"] = short["launches"] + deep["launches"]
     results["fdl_mac"]["launches_by_phase"] = dict(
         serve_short=short["launches"], deep=deep["launches"])
@@ -984,6 +1277,7 @@ def main() -> int:
         for name in KERNELS]}
     split.update({f"{name}_{k}": v for name, r in (("serve_shared", shared), ("serve_mixed", mixed))
                   for k, v in r.items() if k in ("step_ms", "realtime")})
+    log(json.dumps({"filesystem": files}))
     log(json.dumps({"fused_vs_split": split}))
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -52,9 +52,9 @@ class CompiledFilter:
 
 
 def _default_loader(path: str):
-    from folve_tpu_torch.audio.wav import read_wav
+    from folve_tpu_torch import audio
 
-    data, info = read_wav(path)
+    data, info = audio.read_audio(path)
     return data, info.rate, info.ambisonic
 
 

@@ -24,7 +24,11 @@ from folve_tpu_torch.engine.stream import (
     init_state,
     single_chunk_step,
 )
-from folve_tpu_torch.filters.compiler import CompiledFilter, compile_config_file
+from folve_tpu_torch.filters.compiler import (
+    CompiledFilter,
+    FilterCompileError,
+    compile_config_file,
+)
 from folve_tpu_torch.utils.profiling import LatencyStats
 
 
@@ -178,12 +182,14 @@ class SoundProcessor:
     def create(cls, config_file: str, samplerate: int, channels: int,
                device="cuda") -> Optional["SoundProcessor"]:
         """Compile a config for this stream shape; None on a config that
-        does not compile (a missing card raises)."""
+        does not compile (:class:`FilterCompileError`) or cannot be read
+        (``OSError``).  Any other error, a missing card or a CUDA error
+        among them, propagates."""
         dev = resolve_device(device)
         try:
             compiled = compile_config_file(config_file, fsamp=samplerate,
                                            device=dev)
-        except Exception:
+        except (FilterCompileError, OSError):
             return None
         del channels  # the config's /convolver/new channel counts govern
         return cls(compiled, config_file)

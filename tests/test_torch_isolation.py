@@ -42,7 +42,13 @@ def test_every_package_module_was_checked():
                  "folve_tpu_torch/runtime/scheduler.py",
                  "folve_tpu_torch/engine/kernels/conv_step.py",
                  "folve_tpu_torch/parallel/__init__.py",
-                 "folve_tpu_torch/parallel/serving.py", "chip_smoke.py"):
+                 "folve_tpu_torch/parallel/serving.py", "chip_smoke.py",
+                 "folve_tpu_torch/runtime/filesystem.py",
+                 "folve_tpu_torch/runtime/handler.py",
+                 "folve_tpu_torch/runtime/pool.py",
+                 "folve_tpu_torch/filters/spectra_cache.py",
+                 "folve_tpu_torch/audio/flac.py",
+                 "folve_tpu_torch/utils/native_build.py"):
         assert must in names
 
 
@@ -56,8 +62,14 @@ def test_default_device_entry_points_raise_without_card(no_card, tmp_path):
     from folve_tpu_torch.engine import compile_filter_bank, init_state
     from folve_tpu_torch.entry import entry
     from folve_tpu_torch.filters import compile_config_file
+    from folve_tpu_torch.filters.spectra_cache import compile_with_cache
     from folve_tpu_torch.parallel import make_serving_mesh
-    from folve_tpu_torch.runtime import DeviceScheduler, SoundProcessor
+    from folve_tpu_torch.runtime import (
+        DeviceScheduler,
+        FolveFilesystem,
+        ProcessorPool,
+        SoundProcessor,
+    )
 
     ir = np.ones((1, 1, 64), np.float32)
     cfg = tmp_path / "f.conf"
@@ -66,7 +78,9 @@ def test_default_device_entry_points_raise_without_card(no_card, tmp_path):
     for call in (lambda: compile_filter_bank(ir), lambda: init_state(bank),
                  lambda: DeviceScheduler(), entry, make_serving_mesh,
                  lambda: compile_config_file(str(cfg), 44100),
-                 lambda: SoundProcessor.create(str(cfg), 44100, 1)):
+                 lambda: SoundProcessor.create(str(cfg), 44100, 1),
+                 FolveFilesystem, ProcessorPool,
+                 lambda: compile_with_cache(str(cfg), 44100)):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
