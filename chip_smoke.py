@@ -37,11 +37,27 @@ Phases (any failure exits nonzero; no phase's exception is caught):
                opens wrote); 16-bit tracks within 1 LSB of the float64
                oracle, 24-bit at -90 dB or better; a "filesystem" JSON line
                with served realtime factors and first-read latencies
+  cli          the entry points a user runs, each in a fresh process, as
+               `python -m folve_tpu_torch` runs them (through runpy, which
+               writes the kernels' launch counts at exit): `convolve` of a
+               240 s 16-bit FLAC through the flagship filter (within 1 LSB
+               of the float64 oracle, the realtime factor it prints);
+               `serve -D`: the cold process's first 64 KiB of a track over
+               HTTP, 8 reader threads streaming the 60 s tracks over HTTP
+               (the filesystem phase's limits), a `/profile` trace of their
+               window that must list kernel 1's four kernels, the status
+               page, 64 KiB Range requests and the file openings they cost,
+               and `/settings?f=B` with a track then served to B's oracle;
+               `mount` in daemon mode with a track read through the kernel
+               where a FUSE mount is permitted (the daemon stopped by
+               `umount`, or by SIGINT where the kernel's unmount does not
+               end its loop), else the port's FuseSession over a
+               socketpair (the route is named); no kernel rebuilt
   dryrun       entry.dryrun_multichip(8) with its default device: a mesh of
                eight entries of the card, held to the engine step
 Every serving phase holds the output to -90 dB against a float64 oracle and
 runs no plain MAC on a CUDA tensor.  Prints the card's name and power limit
-first, each phase's seconds, a "filesystem" JSON line, a "fused_vs_split"
+first, each phase's seconds, a "filesystem" and a "cli" JSON line, a "fused_vs_split"
 JSON line (kernel 1's graph time beside kernels 2 + 3 + 4's, and the
 serve_shared and serve_mixed steady steps), each MAC kernel's ptxas
 registers and spills, a "kernels" JSON
@@ -56,6 +72,8 @@ import math
 import os
 import re
 import shutil
+import signal
+import struct
 import subprocess
 import sys
 import tempfile
@@ -117,6 +135,37 @@ DEEP_SIZE, DEEP_T = 1 << 20, 64  # MAXSIZE: P = 128
 FS_TRACKS, FS_SECONDS, FS_ALBUM_SECONDS = 8, 60, 20
 FS_LEVEL = 0.1
 FS_FIRST_BYTES = 65536
+# The cli phase: a typical track's length for convolve, the device its
+# processes are told to use, kernel 1's four kernels with a part of the
+# name a trace gives each (conv_step.cu's mac_kernel is the one taking a
+# MacLayout; fdl_mac.cu has a mac_kernel too), and the 64 KiB Range
+# requests of each HTTP reader.
+CLI_LONG_SECONDS = 240
+CLI_PLATFORM = "cuda"
+CONV_STEP_KERNELS = {"forward_kernel": "forward_kernel", "mac_kernel": "MacLayout",
+                     "inverse_kernel": "inverse_kernel", "max_kernel": "max_kernel"}
+CLI_RANGE_REQUESTS = 8
+HERE = os.path.dirname(os.path.abspath(__file__))
+# `python -m folve_tpu_torch ARGS` through runpy; at exit (not at a
+# fork's os._exit) the launch counts of the wrappers named in argv[2]
+# and the plain MAC's CUDA calls go to the file argv[1].  SIGUSR1 dumps
+# every thread's stack to argv[1] + ".stacks" (a process that hangs).
+_RUN_CLI = """
+import faulthandler, importlib, json, runpy, signal, sys
+counts_path, modules = sys.argv[1], json.loads(sys.argv[2])
+sys.argv = ["folve_tpu_torch"] + sys.argv[3:]
+stacks = open(counts_path + ".stacks", "w")
+faulthandler.register(signal.SIGUSR1, file=stacks, all_threads=True)
+try:
+    runpy.run_module("folve_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    from folve_tpu_torch.engine.kernels.fdl_mac import fdl_mac_plain
+    counts = {name: getattr(importlib.import_module(mod), name).launches
+              for name, mod in modules.items()}
+    counts["fdl_mac_plain_cuda_calls"] = fdl_mac_plain.cuda_calls
+    with open(counts_path, "w") as f:
+        json.dump(counts, f)
+"""
 
 KERNELS = {
     "conv_step_fused": dict(
@@ -961,15 +1010,21 @@ def fs_read_all(fs, paths: list) -> tuple[dict, float]:
 
 
 def fs_check(name: str, res: dict, x: np.ndarray, bits: int, ref: np.ndarray) -> float:
-    """The served bytes decode to the source's frames, rate and bits, and
-    hold to the float64 oracle: 16-bit within 1 LSB of the oracle
-    quantized on the host, 24-bit at SNR_LIMIT_DB or better.  Returns the
-    16-bit LSB error or the 24-bit SNR in dB."""
-    from folve_tpu_torch.audio.flac import read_flac
+    """A convolving handler served ``res``; :func:`pcm_check` of its bytes."""
     from folve_tpu_torch.runtime import ConvolveFileHandler
 
     assert isinstance(res["handler"], ConvolveFileHandler), f"{name}: not convolved"
-    y, info = read_flac(res["blob"])
+    return pcm_check(name, res["blob"], x, bits, ref)
+
+
+def pcm_check(name: str, blob: bytes, x: np.ndarray, bits: int, ref: np.ndarray) -> float:
+    """The FLAC bytes ``blob`` decode to the source's frames, rate and
+    bits, and hold to the float64 oracle: 16-bit within 1 LSB of the
+    oracle quantized on the host, 24-bit at SNR_LIMIT_DB or better.
+    Returns the 16-bit LSB error or the 24-bit SNR in dB."""
+    from folve_tpu_torch.audio.flac import read_flac
+
+    y, info = read_flac(blob)
     assert (info.frames, info.rate, info.channels, info.bits_per_sample) == (
         x.shape[0], RATE, COUT, bits), f"{name}: served {info}"
     assert np.all(np.isfinite(y))
@@ -1174,6 +1229,474 @@ def phase_filesystem(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The cli phase: the entry points a user runs, each in a fresh process.
+
+def cli_env(spectra: str) -> dict:
+    return dict(os.environ, FOLVE_PLATFORM=CLI_PLATFORM, FOLVE_SPECTRA_CACHE=spectra)
+
+
+def cli_command(counts_path: str, *argv: str) -> list:
+    """``python -m folve_tpu_torch *argv`` (run by runpy, as ``-m``
+    runs it), writing the kernels' launch counts at exit to
+    ``counts_path``."""
+    modules = {name: k["fn"].__module__ for name, k in KERNELS.items()}
+    return [sys.executable, "-c", _RUN_CLI, counts_path, json.dumps(modules), *argv]
+
+
+def cli_counts(path: str, where: str) -> dict:
+    with open(path) as f:
+        c = json.load(f)
+    assert c.pop("fdl_mac_plain_cuda_calls") == 0, f"{where}: the plain MAC ran on CUDA"
+    return c
+
+
+def expect_launches(where: str, c: dict, names) -> None:
+    for name in names:
+        assert c[name] > 0, f"{where}: {name} never launched ({c})"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port: int, path: str, headers=None, timeout: float = 600) -> tuple:
+    """(status, headers, body) of one GET, the body read in 64 KiB
+    pieces as a player reads a stream."""
+    import http.client
+
+    conn = http.client.HTTPConnection("localhost", port, timeout=timeout)
+    try:
+        conn.request("GET", path, headers=headers or {})
+        resp = conn.getresponse()
+        body = bytearray()
+        while True:
+            piece = resp.read(65536)
+            if not piece:
+                break
+            body += piece
+        return resp.status, dict(resp.getheaders()), bytes(body)
+    finally:
+        conn.close()
+
+
+def fail_with(proc_err: str, msg: str) -> None:
+    with open(proc_err) as f:
+        tail = f.read()[-4000:]
+    raise AssertionError(f"{msg}\n--- stderr of the process ---\n{tail}")
+
+
+def build_listing() -> dict:
+    d = _build.BUILD_DIR
+    return {p.name: p.stat().st_mtime for p in d.glob("*.so")} if d.exists() else {}
+
+
+class FuseWire:
+    """The kernel's side of a FUSE session over a SOCK_SEQPACKET
+    socketpair: hand-packed requests of the linux/fuse.h ABI 7.x
+    (INIT, LOOKUP, OPEN, READ, RELEASE, DESTROY)."""
+
+    IN = struct.Struct("<IIQQIIII")   # len opcode unique nodeid uid gid pid pad
+    OUT = struct.Struct("<IiQ")       # len error unique
+
+    def __init__(self, session):
+        import socket
+
+        self.sock, self._theirs = socket.socketpair(socket.AF_UNIX, socket.SOCK_SEQPACKET)
+        session.set_fd(self._theirs.fileno())
+        self.unique = 0
+        self.thread = threading.Thread(target=session.loop, kwargs=dict(num_threads=1),
+                                       daemon=True)
+        self.thread.start()
+        err, _ = self.request(26, 0, struct.pack("<IIII", 7, 38, 65536, 0) + bytes(48))
+        assert err == 0, f"FUSE_INIT: {err}"
+
+    def request(self, opcode: int, nodeid: int, payload: bytes = b"") -> tuple:
+        self.unique += 1
+        self.sock.send(self.IN.pack(self.IN.size + len(payload), opcode, self.unique,
+                                    nodeid, 0, 0, 0, 0) + payload)
+        reply = self.sock.recv(1 << 21)
+        length, error, unique = self.OUT.unpack_from(reply)
+        assert unique == self.unique
+        return error, reply[self.OUT.size:length]
+
+    def read_file(self, name: str, chunk: int = 65536) -> bytes:
+        err, body = self.request(1, 1, name.encode() + b"\0")  # LOOKUP under the root
+        assert err == 0, f"FUSE_LOOKUP {name}: {err}"
+        nodeid = struct.unpack_from("<Q", body)[0]
+        err, body = self.request(14, nodeid, struct.pack("<II", os.O_RDONLY, 0))
+        assert err == 0, f"FUSE_OPEN {name}: {err}"
+        fh = struct.unpack_from("<Q", body)[0]
+        out = bytearray()
+        while True:
+            err, body = self.request(15, nodeid, struct.pack("<QQIIQII", fh, len(out),
+                                                             chunk, 0, 0, 0, 0))
+            assert err == 0, f"FUSE_READ {name} at {len(out)}: {err}"
+            if not body:
+                break
+            out += body
+        self.request(18, nodeid, struct.pack("<QIIQ", fh, 0, 0, 0))
+        return bytes(out)
+
+    def close(self) -> None:
+        try:
+            self.request(38, 0)  # FUSE_DESTROY: the loop exits
+        except OSError:
+            pass
+        self.thread.join(timeout=10)
+        self.sock.close()
+        self._theirs.close()
+
+
+def cli_convolve(tmp: str, cfg: str, track: str, x: np.ndarray, ref: np.ndarray,
+                 env: dict, smi: str) -> dict:
+    out, counts_path = os.path.join(tmp, "out.flac"), os.path.join(tmp, "convolve.json")
+    t0 = time.perf_counter()
+    res = subprocess.run(cli_command(counts_path, "convolve", "-C", cfg, "-i", "A", track, out),
+                         cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert res.returncode == 0, f"convolve exited {res.returncode}:\n{res.stderr[-4000:]}"
+    m = re.search(r"convolved ([\d.]+)s of audio in ([\d.]+)s \(([\d.]+)x realtime\)",
+                  res.stdout)
+    assert m, f"convolve printed {res.stdout!r}"
+    with open(out, "rb") as f:
+        lsb = pcm_check("cli convolve", f.read(), x, 16, ref)
+    c = cli_counts(counts_path, "cli convolve")
+    expect_launches("cli convolve", c, ("fft_real_half", "fdl_mac_split", "ifft_ola"))
+    out_d = dict(audio_s=x.shape[0] / RATE, process_wall_s=wall,
+                 printed_convolve_s=float(m.group(2)), realtime=float(m.group(3)),
+                 lsb=lsb, launches=c, card=smi)
+    log(f"  convolve: {out_d['audio_s']:.1f} s of audio, the CLI printed "
+        f"{m.group(3)}x realtime ({m.group(2)} s), process wall {wall:.2f} s, "
+        f"{lsb:.0f} LSB off the oracle; launches {c} ({smi})")
+    return out_d
+
+
+def cli_serve(tmp: str, cfg: str, src: str, names: list, bits: list, tracks: dict,
+              ref, env: dict, smi: str) -> dict:
+    status_port, files_port = free_port(), free_port()
+    counts_path, err = os.path.join(tmp, "serve.json"), os.path.join(tmp, "serve.err")
+    cmd = cli_command(counts_path, "serve", "-C", cfg, "-i", "A", "-D", "-p", str(status_port),
+                      "--files-port", str(files_port), src)
+    out: dict = dict(card=smi)
+    with open(err, "w") as errf:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.DEVNULL,
+                                stderr=errf)
+    try:
+        # 1. Cold process: spawn to the status page (imports, the CUDA
+        # context, the filesystem), then to the first 64 KiB of a track.
+        while True:
+            if proc.poll() is not None:
+                fail_with(err, f"serve exited {proc.returncode} before serving")
+            try:
+                assert http_get(status_port, "/")[0] == 200
+                break
+            except ConnectionRefusedError:
+                if time.perf_counter() - t0 > 300:
+                    fail_with(err, "serve never listened")
+                time.sleep(0.02)
+        out["cold_status_page_s"] = time.perf_counter() - t0
+        while True:
+            try:
+                code, _, first = http_get(files_port, f"/files/{names[0]}",
+                                          {"Range": f"bytes=0-{FS_FIRST_BYTES - 1}"})
+                break
+            except ConnectionRefusedError:  # the file server binds just after
+                assert proc.poll() is None and time.perf_counter() - t0 < 300
+                time.sleep(0.01)
+        out["cold_first_read_s"] = time.perf_counter() - t0
+        assert code == 206 and len(first) == FS_FIRST_BYTES, (code, len(first))
+
+        # 2. /profile: a short first trace starts the profiler (409 while
+        # it runs), then the trace of the readers' window.
+        def profile(secs: float) -> str:
+            code, _, body = http_get(status_port, f"/profile?secs={secs}")
+            assert code == 200, (code, body)
+            return body.decode().rsplit(" to ", 1)[1].strip()
+
+        def trace_of(log_dir: str) -> dict:
+            from folve_tpu_torch.utils.profiling import analyze_device_trace
+
+            deadline = time.perf_counter() + 120
+            while not os.path.exists(os.path.join(log_dir, "trace.json")):
+                assert proc.poll() is None and time.perf_counter() < deadline, (
+                    f"no trace in {log_dir}")
+                time.sleep(0.1)
+            return analyze_device_trace(log_dir)
+
+        warm_dir = profile(0.5)
+        out["profile_second_request_code"] = http_get(status_port, "/profile?secs=0.5")[0]
+        assert out["profile_second_request_code"] == 409
+        trace_of(warm_dir)  # waits until that trace is written
+
+        # 3. One reader thread per track, each a streaming GET read in
+        # 64 KiB pieces, with a 1 s trace over their window.
+        results, errors = {}, []
+
+        def reader(name):
+            try:
+                t = time.perf_counter()
+                code, hdrs, blob = http_get(files_port, f"/files/{name}", {"Range": "bytes=0-"})
+                assert code == 206, (name, code)
+                results[name] = dict(blob=blob, t0=t, t1=time.perf_counter())
+            except BaseException as e:  # re-raised on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=reader, args=(n,)) for n in names]
+        for th in threads:
+            th.start()
+        trace_dir = profile(1)
+        for th in threads:
+            th.join(timeout=600)
+        if errors:
+            raise errors[0]
+        assert not any(th.is_alive() for th in threads), "a reader never finished"
+        wall = max(r["t1"] for r in results.values()) - min(r["t0"] for r in results.values())
+        audio_s = sum(tracks[n].shape[0] for n in names) / RATE
+        lsb, snr = {}, {}
+        for n, b in zip(names, bits):
+            v = pcm_check(f"cli serve {n}", results[n]["blob"], tracks[n], b, ref("A", n))
+            (lsb if b == 16 else snr)[n] = v
+        trace = trace_of(trace_dir)
+        kernel_ms = {k: sum(ms for name, ms in trace.get("ops", []) if part in name)
+                     for k, part in CONV_STEP_KERNELS.items()}
+        log(f"  serve: /profile trace {trace_dir}: device time "
+            f"{trace.get('device_time_ms', 0.0):.3f} ms, kernel 1's kernels {kernel_ms}, "
+            f"top ops {[(name[:60], ms) for name, ms in trace.get('ops', [])[:6]]}")
+        for k, ms in kernel_ms.items():
+            assert ms > 0, f"the /profile trace lists no {k}"
+
+        # 4. The status page: every track, and the device's steps.
+        code, _, page = http_get(status_port, "/")
+        assert code == 200
+        missing = [n for n in names if n.encode() not in page]
+        assert not missing, f"status page lacks {missing}"
+        m = re.search(rb"<p>Device: (\d+) fused steps for (\d+) block jobs", page)
+        assert m and int(m.group(1)) > 0, "status page shows no device steps"
+        opened = re.search(rb"<p>(\d+) file openings, (\d+) re-opens", page)
+
+        # 5. 64 KiB Range requests, one reader thread per track, each
+        # request an open and a close of the file: the openings they cost.
+        def ranges(name):
+            try:
+                full = results[name]["blob"]
+                for lo in range(0, min(CLI_RANGE_REQUESTS * 65536, len(full)), 65536):
+                    code, _, blob = http_get(files_port, f"/files/{name}",
+                                             {"Range": f"bytes={lo}-{lo + 65535}"})
+                    # Past the true end a range holds the stat size's
+                    # padding, so the streamed bytes are its prefix.
+                    want = full[lo:lo + 65536]
+                    assert code == 206 and blob[:len(want)] == want, f"range {lo} of {name}"
+            except BaseException as e:
+                errors.append(e)
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=ranges, args=(n,)) for n in names]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if errors:
+            raise errors[0]
+        range_wall = time.perf_counter() - t1
+        page = http_get(status_port, "/")[2]
+        after = re.search(rb"<p>(\d+) file openings, (\d+) re-opens", page)
+        range_opens = int(after.group(1)) - int(opened.group(1))
+        range_reopens = int(after.group(2)) - int(opened.group(2))
+
+        # 6. The filter switch: a track opened afterwards is B's.
+        code, hdrs, _ = http_get(status_port, "/settings?f=B")
+        assert code == 302
+        code, _, blob = http_get(files_port, f"/files/{names[0]}", {"Range": "bytes=0-"})
+        assert code == 206
+        switch = pcm_check("cli serve after /settings?f=B", blob, tracks[names[0]],
+                           bits[0], ref("B", names[0]))
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)  # serve_http_files returns on it
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    if proc.returncode != 0:
+        fail_with(err, f"serve exited {proc.returncode}")
+    c = cli_counts(counts_path, "cli serve")
+    expect_launches("cli serve", c, ("conv_step_fused",))
+    out.update(tracks=len(names), audio_s=audio_s, wall_s=wall,
+               served_realtime=audio_s / wall, worst_lsb=max(lsb.values()),
+               worst_snr_db=max(snr.values()), device_steps=int(m.group(1)),
+               device_jobs=int(m.group(2)),
+               profile=dict(device_time_ms=trace.get("device_time_ms"),
+                            conv_step_kernels_ms=kernel_ms,
+                            top_ops=[(name[:120], ms) for name, ms in trace.get("ops", [])[:8]]),
+               range_requests=dict(readers=len(names), per_reader=CLI_RANGE_REQUESTS,
+                                   wall_s=range_wall, file_openings=range_opens,
+                                   re_opens=range_reopens),
+               switch_lsb=switch, launches=c)
+    log(f"  serve: cold process: status page at {out['cold_status_page_s']:.3f} s, first "
+        f"read at {out['cold_first_read_s']:.3f} s after the spawn; {len(names)} "
+        f"HTTP readers, {audio_s:.1f} s of audio in {wall:.3f} s: served realtime "
+        f"{out['served_realtime']:.1f}; worst {out['worst_lsb']:.0f} LSB / "
+        f"{out['worst_snr_db']:.2f} dB; status page {out['device_steps']} steps; "
+        f"{len(names)} x {CLI_RANGE_REQUESTS} Range requests opened the files "
+        f"{range_opens} times ({range_reopens} re-opens) in {range_wall:.3f} s; "
+        f"after /settings?f=B {switch:.0f} LSB off B's oracle; launches {c} ({smi})")
+    return out
+
+
+def process_gone(pid: int, secs: float) -> bool:
+    deadline = time.time() + secs
+    while os.path.exists(f"/proc/{pid}"):
+        if time.time() > deadline:
+            return False
+        time.sleep(0.1)
+    return True
+
+
+def mounted(path: str) -> bool:
+    with open("/proc/mounts") as f:
+        return any(line.split()[1] == path for line in f)
+
+
+def mount_permitted(mnt: str) -> str | None:
+    """None where this process may mount FUSE at ``mnt``, else why not."""
+    if not os.path.exists("/dev/fuse"):
+        return "no /dev/fuse"
+    from folve_tpu_torch.fuse.mount import FuseSession
+
+    session = FuseSession(vfs=None)
+    try:
+        session.mount(mnt)
+    except OSError as e:
+        return f"mount refused: {e}"
+    else:
+        session.unmount()
+    finally:
+        session.destroy()
+    return None
+
+
+def cli_fuse(tmp: str, cfg: str, src: str, name: str, x: np.ndarray, ref: np.ndarray,
+             env: dict, dev, smi: str) -> dict:
+    mnt = os.path.join(tmp, "mnt")
+    os.makedirs(mnt)
+    why_not = mount_permitted(mnt)
+    out: dict = dict(route="kernel" if why_not is None else "socketpair",
+                     mount_refused=why_not, card=smi)
+    if why_not is None:
+        counts_path, pid_file = os.path.join(tmp, "mount.json"), os.path.join(tmp, "mount.pid")
+        t0 = time.perf_counter()
+        res = subprocess.run(cli_command(counts_path, "mount", "-C", cfg, "-i", "A", "-P",
+                                         pid_file, src, mnt),
+                             cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+        out["mount_s"] = time.perf_counter() - t0
+        assert res.returncode == 0, f"daemon mount exited {res.returncode}: {res.stderr}"
+        with open(pid_file) as f:
+            pid = int(f.read())
+        try:
+            t0 = time.perf_counter()
+            with open(os.path.join(mnt, name), "rb") as f:
+                blob = bytearray()
+                while piece := f.read(65536):
+                    blob += piece
+            out["read_s"] = time.perf_counter() - t0
+        finally:
+            um = subprocess.run(["umount", mnt], capture_output=True, text=True)
+            out["daemon_stopped_by"] = "umount"
+            if not process_gone(pid, 2) and not mounted(mnt):
+                # Where the kernel's FUSE does not end the session's read
+                # on an unmount, the daemon is stopped as a foreground
+                # mount is, by SIGINT (mount_and_serve).
+                out["daemon_stopped_by"] = "SIGINT after umount"
+                os.kill(pid, signal.SIGINT)
+            if not process_gone(pid, 60):
+                os.kill(pid, signal.SIGUSR1)
+                time.sleep(2)
+                with open(counts_path + ".stacks") as f:
+                    stacks = f.read()[-6000:]
+                os.kill(pid, signal.SIGKILL)
+                subprocess.run(["umount", "-l", mnt], check=False, capture_output=True)
+                raise AssertionError(
+                    f"the mount daemon outlived its unmount (umount exited "
+                    f"{um.returncode}: {um.stderr.strip()!r}; still mounted: {mounted(mnt)}; "
+                    f"counts written: {os.path.exists(counts_path)}); its threads:\n{stacks}")
+            out["umount_rc"] = um.returncode
+        c = cli_counts(counts_path, "cli mount")
+    else:
+        from folve_tpu_torch.fuse.mount import FuseSession
+        from folve_tpu_torch.runtime import FolveFilesystem
+        from folve_tpu_torch.server.vfs import FolveVfs
+
+        fs = FolveFilesystem(device=dev)
+        fs.underlying_dir, fs.base_config_dir = src, cfg
+        fs.current_config_subdir = "A"
+        assert fs.check_initialized()
+        wire = FuseWire(FuseSession(FolveVfs(fs)))
+        reset_counts()
+        try:
+            t0 = time.perf_counter()
+            blob = wire.read_file(name)
+            out["read_s"] = time.perf_counter() - t0
+        finally:
+            wire.close()
+            fs.device_scheduler.stop()
+        c = counts()
+        no_plain_mac("cli fuse")
+    expect_launches(f"cli fuse ({out['route']})", c, ("conv_step_fused",))
+    out.update(lsb=pcm_check(f"cli fuse {name}", bytes(blob), x, 16, ref),
+               audio_s=x.shape[0] / RATE, launches=c)
+    out["read_realtime"] = out["audio_s"] / out["read_s"]
+    log(f"  fuse ({out['route']}{'' if why_not is None else ': ' + why_not}): {name} "
+        f"read in {out['read_s']:.3f} s ({out['read_realtime']:.1f}x realtime), "
+        f"{out['lsb']:.0f} LSB off the oracle; daemon stopped by "
+        f"{out.get('daemon_stopped_by', '-')}; launches {c} ({smi})")
+    return out
+
+
+def phase_cli(dev, smi: str) -> dict:
+    log(f"phase cli: python -m folve_tpu_torch convolve ({CLI_LONG_SECONDS} s track), "
+        f"serve ({FS_TRACKS} HTTP readers of {FS_SECONDS} s tracks, /profile, "
+        "/settings) and mount, each in a fresh process, through the "
+        f"{SIZE}-tap filter")
+    tmp = tempfile.mkdtemp(prefix="folve_chip_smoke_cli_")
+    try:
+        cfg, src = os.path.join(tmp, "filters"), os.path.join(tmp, "music")
+        oracles = {}
+        for name, seed in (("A", 91), ("B", 92)):
+            os.makedirs(os.path.join(cfg, name))
+            oracles[name] = FsOracle(make_config(os.path.join(cfg, name), f"filter-{RATE}",
+                                                 seed)[1])
+        names = [f"t{i}.flac" for i in range(FS_TRACKS)]
+        bits = [16 if i < FS_TRACKS // 2 else 24 for i in range(FS_TRACKS)]
+        tracks = fs_tracks(src, 95, names, [FS_SECONDS * RATE] * FS_TRACKS, bits)
+        long_track = fs_tracks(os.path.join(tmp, "in"), 96, ["long.flac"],
+                               [CLI_LONG_SECONDS * RATE], [16])["long.flac"]
+        refs = {}
+
+        def ref(filt: str, name: str) -> np.ndarray:
+            if (filt, name) not in refs:
+                refs[filt, name] = oracles[filt](tracks[name])
+            return refs[filt, name]
+
+        env = cli_env(os.path.join(tmp, "spectra"))
+        built = build_listing()
+        out = dict(convolve=cli_convolve(tmp, cfg, os.path.join(tmp, "in", "long.flac"),
+                                         long_track, oracles["A"](long_track), env, smi),
+                   serve=cli_serve(tmp, cfg, src, names, bits, tracks, ref, env, smi),
+                   fuse=cli_fuse(tmp, cfg, src, names[1], tracks[names[1]],
+                                 ref("A", names[1]), env, dev, smi))
+        assert build_listing() == built, "a CLI process rebuilt the kernels"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def phase_dryrun() -> dict:
     log("phase dryrun: entry.dryrun_multichip(8) on the card")
     from folve_tpu_torch.entry import dryrun_multichip
@@ -1242,6 +1765,7 @@ def main() -> int:
         deep = run_phase("deep", phase_deep, dev)
         sharded = run_phase("sharded", phase_sharded, dev, tmp)
     files = run_phase("filesystem", phase_filesystem, dev, smi)
+    cli = run_phase("cli", phase_cli, dev, smi)
     run_phase("dryrun", phase_dryrun)
     callers = {"conv_step_fused": "serve_shared", "fdl_mac": "serve_short+deep",
                "fft_real_half_rows": "sharded", "ifft_partial_rows": "sharded",
@@ -1250,11 +1774,14 @@ def main() -> int:
     results["conv_step_fused"]["launches_by_phase"] = dict(
         serve_shared=shared["launches"]["conv_step_fused"],
         processor=proc["launches"]["conv_step_fused"],
-        filesystem=files["launches"]["conv_step_fused"])
+        filesystem=files["launches"]["conv_step_fused"],
+        cli_serve=cli["serve"]["launches"]["conv_step_fused"],
+        cli_fuse=cli["fuse"]["launches"]["conv_step_fused"])
     for name in ("fft_real_half", "fdl_mac_split", "ifft_ola"):
         results[name]["launches"] = mixed["launches"][name]
         results[name]["launches_by_phase"] = dict(
-            serve_mixed=mixed["launches"][name], filesystem=files["launches"][name])
+            serve_mixed=mixed["launches"][name], filesystem=files["launches"][name],
+            cli_convolve=cli["convolve"]["launches"][name])
         callers[name] = "serve_mixed"
     results["fdl_mac_split"]["launches_by_phase"]["sharded"] = (
         sharded["launches"]["fdl_mac_split"])
@@ -1278,6 +1805,7 @@ def main() -> int:
     split.update({f"{name}_{k}": v for name, r in (("serve_shared", shared), ("serve_mixed", mixed))
                   for k, v in r.items() if k in ("step_ms", "realtime")})
     log(json.dumps({"filesystem": files}))
+    log(json.dumps({"cli": cli}))
     log(json.dumps({"fused_vs_split": split}))
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

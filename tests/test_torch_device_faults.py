@@ -99,3 +99,74 @@ def test_device_error_in_a_step_fails_the_read(served, monkeypatch):
             assert data, "the stream ended without a step"
             out += data
     fs.close_handler("/song.flac", h)
+
+
+def _steps_fail(monkeypatch):
+    def fail(*a, **k):
+        raise RuntimeError("CUDA error: launch failure")
+
+    monkeypatch.setattr("folve_tpu_torch.runtime.scheduler.single_chunk_step", fail)
+    monkeypatch.setattr("folve_tpu_torch.engine.chunk_step", fail)
+
+
+def test_device_error_in_cli_convolve_is_no_zero_exit(served, monkeypatch, tmp_path):
+    from folve_tpu_torch.cli import main
+
+    fs, conf = served
+    monkeypatch.setenv("FOLVE_PLATFORM", "cpu")
+    _steps_fail(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        main(["convolve", "-C", fs.base_config_dir, "-i", "f",
+              os.path.join(fs.underlying_dir, "song.flac"), str(tmp_path / "out.flac")])
+
+
+def test_device_error_in_a_served_http_read_truncates_it(served, monkeypatch):
+    """Over HTTP the failed read drops the connection mid-body (the
+    status line is gone): the client sees an incomplete response, never
+    a complete file."""
+    import http.client
+
+    from folve_tpu_torch.server.httpfs import start_httpfs_thread
+    from folve_tpu_torch.server.vfs import FolveVfs
+
+    fs, _ = served
+    _steps_fail(monkeypatch)
+    httpd = start_httpfs_thread(FolveVfs(fs), 0)
+    try:
+        conn = http.client.HTTPConnection("localhost", httpd.server_address[1], timeout=60)
+        conn.request("GET", "/files/song.flac")
+        resp = conn.getresponse()
+        assert resp.status == 200
+        with pytest.raises((http.client.IncompleteRead, ConnectionError)):
+            resp.read()
+        conn.close()
+    finally:
+        httpd.shutdown()
+
+
+def test_device_error_in_a_fuse_read_is_an_io_error(served, monkeypatch):
+    from folve_tpu_torch.server.vfs import FolveVfs
+
+    from tests.test_fuse import ROOT_ID
+    from tests.test_torch_fuse import PortHarness
+
+    fs, _ = served
+    _steps_fail(monkeypatch)
+    harness = PortHarness(FolveVfs(fs))
+    try:
+        err, nodeid, _ = harness.lookup(ROOT_ID, "song.flac")
+        assert err == 0
+        err, fh, _ = harness.open(nodeid)
+        assert err == 0
+        offset, errors = 0, []
+        for _ in range(100):
+            err, body = harness.read(nodeid, fh, offset, 65536)
+            if err:
+                errors.append(err)
+                break
+            assert body, "the stream ended without a step"
+            offset += len(body)
+        assert errors == [-5]  # -EIO
+        harness.release(nodeid, fh)
+    finally:
+        harness.close()
