@@ -27,6 +27,18 @@ Phases (any failure exits nonzero; no phase's exception is caught):
   sharded      the flagship through DeviceScheduler on a mesh of 4 freq shards
                of the card (row-window FFT kernels), held against the
                single-device split route
+  multihost    the flagship through the SlotServer: 2 hosts x 4 slots, each
+               host stream 1 x freq 2 on the card, T 8, six ticks of a
+               script (slot 7 joins at tick 1, slot 2 pauses at tick 3,
+               slot 5 is reset after tick 3 for a new stream, slot 0 ends
+               777 frames early); every stream at -90 dB against the
+               float64 oracle, every output bit-equal to a server that
+               never paused slot 2 and gave the new stream a fresh slot,
+               kernels 6, 3 and 7 launched 2 hosts x 2 shards per tick;
+               then the same script from 2 fresh processes, one host
+               each, over a gloo group on 127.0.0.1, within 1e-6 of the
+               single process, no torch.distributed call in a tick, a row
+               of the other host refused; a "multihost" JSON line
   filesystem   FolveFilesystem on the card serving 8 FLAC tracks of 60 s (4 at
                16 bits, 4 at 24) through the flagship filter, one reader
                thread per track, as a player reads (open, stat, 64 KiB reads
@@ -59,7 +71,7 @@ Every serving phase holds the output to -90 dB against a float64 oracle and
 runs no plain MAC on a CUDA tensor.  Prints the card's name and power limit
 first, each phase's seconds, a "filesystem" and a "cli" JSON line, a "fused_vs_split"
 JSON line (kernel 1's graph time beside kernels 2 + 3 + 4's, and the
-serve_shared and serve_mixed steady steps), each MAC kernel's ptxas
+serve_shared and serve_mixed steady steps), a "multihost" JSON line, each MAC kernel's ptxas
 registers and spills, a "kernels" JSON
 line before the last line, and as the last line {"ok": true, "device":
 {...}}.
@@ -128,6 +140,16 @@ SNR_LIMIT_DB = -90.0
 FREQ = 4            # freq shards of the sharded phase
 SHORT_SIZE = 8192   # one fragment: P = 1
 DEEP_SIZE, DEEP_T = 1 << 20, 64  # MAXSIZE: P = 128
+# The multihost phase: 2 hosts of stream 1 x freq 2 (entries of the
+# card), 4 slots each, 6 ticks; slot 0's last tick ends MH_PARTIAL frames
+# early, slot 5 carries stream MH_NEW_STREAM after its reset.  Its worker
+# processes and their gloo group time out after MH_TIMEOUT seconds; the
+# two-process outputs are held to the JAX test's tolerance.
+MH_HOSTS, MH_FREQ, MH_S_LOCAL, MH_TICKS = 2, 2, 4, 6
+MH_PARTIAL, MH_NEW_STREAM = 777, 8
+MH_TIMEOUT = 120
+MH_PROC_TOL = 1e-6
+MH_KERNELS = ("fft_real_half_rows", "fdl_mac_split", "ifft_partial_rows")
 # The filesystem phase: 8 tracks of 60 s (cut from a typical 4-minute
 # track to bound the float64 oracle's time), an album of three 20 s
 # tracks, a Gaussian level whose oracle peak stays below 0.9 of full
@@ -940,6 +962,302 @@ def phase_sharded(dev, tmp: str) -> dict:
     log(f"  max|sharded - split route| / max|split| = {rel:.3e} (limit {KERNEL_TOL:g})")
     assert rel <= KERNEL_TOL, "sharded output disagrees with the split route"
     return dict(launches=c, snr_db=worst, rel_vs_split=rel)
+
+
+# ---------------------------------------------------------------------------
+# The multihost phase: the SlotServer over (host, stream, freq).
+
+def mh_schedule(fragm: int, reference: bool = False) -> list:
+    """The multihost phase's script, one entry per tick: ``({row: (stream,
+    block)}, {row: n_valid}, [rows reset after the tick])``.  Slot 7
+    joins at tick 1, slot 2 pauses at tick 3, slot 5 is reset after tick
+    3 and then carries stream 8, and slot 0's last tick is partial.
+    ``reference``: the server the pause and the reset are held against,
+    where slot 2 never pauses and slot 5 carries stream 8 from the start."""
+    fed, out = {}, []
+    for tick in range(MH_TICKS):
+        feed, nv = {}, {}
+        for row in range(MH_HOSTS * MH_S_LOCAL):
+            if (row == 7 and tick < 1) or (row == 2 and tick == 3 and not reference):
+                continue
+            stream = MH_NEW_STREAM if row == 5 and (reference or tick > 3) else row
+            feed[row] = (stream, fed.get(stream, 0))
+            fed[stream] = feed[row][1] + 1
+            if row == 0 and tick == MH_TICKS - 1:
+                nv[row] = T * fragm - MH_PARTIAL
+        out.append((feed, nv, [5] if tick == 3 and not reference else []))
+    return out
+
+
+def mh_audio(stream: int, fragm: int) -> np.ndarray:
+    """Stream ``stream``'s seeded audio [MH_TICKS*T*fragm, Cin]; stream 0
+    ends MH_PARTIAL frames before its last block does."""
+    rng = np.random.default_rng(900 + stream)
+    audio = (0.1 * rng.standard_normal((MH_TICKS * T * fragm, CIN))).astype(np.float32)
+    if stream == 0:
+        audio[-MH_PARTIAL:] = 0
+    return audio
+
+
+def mh_block(audio: np.ndarray, block: int, fragm: int) -> np.ndarray:
+    chunk = audio[block * T * fragm:(block + 1) * T * fragm]
+    return np.ascontiguousarray(chunk.reshape(T, fragm, CIN).transpose(0, 2, 1))
+
+
+def mh_run(srv, schedule: list, rows, audio: dict) -> tuple:
+    """Drive ``srv`` through ``schedule`` for ``rows``; returns ({(row,
+    tick): y}, each tick's seconds from the call to the device's
+    synchronize, each tick's active slots)."""
+    outs, secs, active = {}, [], []
+    fragm, dev = srv.bank.fragm, srv.bank.device
+    for tick, (feed, nv, resets) in enumerate(schedule):
+        x = {row: mh_block(audio[s], j, fragm) for row, (s, j) in feed.items() if row in rows}
+        t0 = time.perf_counter()
+        y = srv.tick(x, n_valid={r: v for r, v in nv.items() if r in rows})
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        active.append(len(x))
+        for row in resets:
+            srv.reset_slot(row)
+        outs.update({(row, tick): v for row, v in y.items()})
+    return outs, secs, active
+
+
+def mh_timing(secs: list, active: list, fragm: int) -> dict:
+    """Median tick and realtime factor (active slots x T x fragm / rate
+    over the tick's seconds, median over ticks)."""
+    rt = [a * T * fragm / RATE / s for a, s in zip(active, secs)]
+    return dict(tick_ms=[1e3 * s for s in secs], median_tick_ms=1e3 * float(np.median(secs)),
+                realtime=float(np.median(rt)))
+
+
+def slot_worker(rank: int, port: int, cfg: str, out_path: str, device: str) -> None:
+    """One host of the multihost phase's two-process run (started in a
+    fresh process by :func:`phase_multihost`): a ``gloo`` group on
+    127.0.0.1, the host's own stream 1 x freq 2 row on ``device``, its
+    own slots fed the phase's script.  Writes its outputs to ``out_path`` and
+    prints its figures as a ``MH_WORKER`` JSON line."""
+    import datetime
+
+    from torch import distributed as dist
+
+    from folve_tpu_torch.filters.compiler import compile_config_file
+    from folve_tpu_torch.parallel import multihost as mh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=MH_HOSTS, rank=rank,
+                            timeout=datetime.timedelta(seconds=MH_TIMEOUT))
+    try:
+        dev = torch.device(device)
+        bank = compile_config_file(cfg, fsamp=RATE, device=dev).bank
+        mesh = mh.make_multihost_serving_mesh(freq_parallel=MH_FREQ, devices=[dev] * MH_FREQ)
+        assert mesh.shape == {"host": MH_HOSTS, "stream": 1, "freq": MH_FREQ}, mesh.shape
+        assert mesh.local_hosts == (rank,), mesh.local_hosts
+        srv = mh.SlotServer(mesh, bank, s_local=MH_S_LOCAL, t=T)
+        assert srv.host_index == rank
+        lo = mh.host_rows(mesh, rank, MH_S_LOCAL)
+        rows = range(lo.start, lo.stop)
+        audio = {s: mh_audio(s, bank.fragm) for s in range(MH_HOSTS * MH_S_LOCAL + 1)}
+        # Count every torch.distributed call the ticks and resets make.
+        calls = []
+        real = {n: getattr(dist, n) for n in dir(dist) if not n.startswith("_")
+                and callable(getattr(dist, n)) and not isinstance(getattr(dist, n), type)}
+
+        def counted(name):
+            def call(*a, **k):
+                calls.append(name)
+                return real[name](*a, **k)
+            return call
+
+        reset_counts()
+        for name in real:
+            setattr(dist, name, counted(name))
+        try:
+            outs, secs, active = mh_run(srv, mh_schedule(bank.fragm), rows, audio)
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+        c = counts()
+        other = lo.stop % (MH_HOSTS * MH_S_LOCAL)
+        try:
+            srv.tick({other: mh_block(audio[other], 0, bank.fragm)})
+        except ValueError as e:
+            foreign = str(e)
+        else:
+            raise AssertionError(f"host {rank} accepted row {other} of another host")
+        np.savez(out_path, **{f"r{row}_t{tick}": y for (row, tick), y in outs.items()})
+        print("MH_WORKER " + json.dumps(dict(
+            rank=rank, **mh_timing(secs, active, bank.fragm), launches=c, dist_calls_in_tick=calls,
+            plain_mac_cuda_calls=fdl_mac_plain.cuda_calls, foreign_row_error=foreign)),
+            flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def mh_workers(tmp: str, cfg: str, dev) -> tuple:
+    """The two-process run: two fresh processes on ``dev``, one host
+    each.  Returns (their figures, their outputs {(row, tick): y})."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    outs = [os.path.join(tmp, f"mh_worker{r}.npz") for r in range(MH_HOSTS)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke, sys; chip_smoke.slot_worker("
+         "int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])",
+         str(r), str(port), cfg, outs[r], str(dev)],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MH_HOSTS)]
+    figures, got = [], {}
+    try:
+        for r, proc in enumerate(procs):
+            text, _ = proc.communicate(timeout=MH_TIMEOUT)
+            assert proc.returncode == 0, f"multihost worker {r} failed:\n{text[-4000:]}"
+            line = [ln for ln in text.splitlines() if ln.startswith("MH_WORKER ")]
+            assert line, f"multihost worker {r} printed no figures:\n{text[-4000:]}"
+            figures.append(json.loads(line[-1][len("MH_WORKER "):]))
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    for path in outs:
+        with np.load(path) as z:
+            for k in z.files:
+                row, tick = k[1:].split("_t")
+                got[int(row), int(tick)] = z[k]
+    return figures, got
+
+
+def mh_check_launches(where: str, c: dict, per_tick: int) -> None:
+    """Kernels 6, 3 and 7 launched ``per_tick`` times a tick (one per host
+    row and freq shard), and no other kernel."""
+    for name in KERNELS:
+        want = per_tick * MH_TICKS if name in MH_KERNELS else 0
+        assert c[name] == want, f"{where}: {name} launched {c[name]} times, not {want}"
+
+
+def mh_shape_checks(dev) -> list:
+    """Kernels 6, 3 and 7 against their plain versions at the shapes one
+    host row of the multihost phase gives them: 4 slots, T 8, each of 2
+    k1 windows, the shared bank at one shard's bins."""
+    rng = np.random.default_rng(95)
+    cu = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    plan = get_plan(N)
+    kn, cols = plan.m1 // MH_FREQ, plan.m2 // 2 + 1
+    x = cu(rng.standard_normal((MH_S_LOCAL, T, CIN, FRAGM)))
+    yr = cu(rng.standard_normal((MH_S_LOCAL, T, COUT, kn * cols)))
+    yi = cu(rng.standard_normal((MH_S_LOCAL, T, COUT, kn * cols)))
+    errs = []
+    for f in range(MH_FREQ):
+        ks = f * kn
+        errs.append(check_kernel(f"fft_real_half_rows(multihost window {f})",
+                                 fft_real_half_rows(x, N, ks, kn),
+                                 fft_real_half_rows_plain(x, N, ks, kn)))
+        errs.append(check_kernel(f"ifft_partial_rows(multihost window {f})",
+                                 ifft_partial_rows(yr, yi, N, ks, kn),
+                                 ifft_partial_rows_plain(yr, yi, N, ks, kn)))
+    errs.append(mac_case(cu, rng, "split", MH_S_LOCAL, P, T, shared=True,
+                         k=K // MH_FREQ, timed=False)["max_abs_err"])
+    return errs
+
+
+def phase_multihost(dev, tmp: str) -> dict:
+    log(f"phase multihost: SlotServer, {MH_HOSTS} hosts x {MH_S_LOCAL} slots x "
+        f"{MH_FREQ} freq shards on the card, T = {T}, {MH_TICKS} ticks; then "
+        f"{MH_HOSTS} processes over gloo")
+    from folve_tpu_torch.filters.compiler import compile_config_file
+    from folve_tpu_torch.parallel import multihost as mh
+
+    cfg, ir = make_config(tmp, "multihost", 91)
+    bank = compile_config_file(cfg, fsamp=RATE, device=dev).bank
+    fragm = bank.fragm
+    mesh = mh.make_multihost_serving_mesh(n_hosts=MH_HOSTS, freq_parallel=MH_FREQ,
+                                          devices=[dev] * (MH_HOSTS * MH_FREQ))
+    assert mesh.shape == {"host": MH_HOSTS, "stream": 1, "freq": MH_FREQ}, mesh.shape
+    rows = range(MH_HOSTS * MH_S_LOCAL)
+    audio = {s: mh_audio(s, fragm) for s in range(MH_HOSTS * MH_S_LOCAL + 1)}
+    srv = mh.SlotServer(mesh, bank, s_local=MH_S_LOCAL, t=T)
+    schedule = mh_schedule(fragm)
+    reset_counts()
+    outs, secs, active = mh_run(srv, schedule, rows, audio)
+    c = counts()
+    single = mh_timing(secs, active, fragm)
+    log(f"  launches {c}; tick ms {[round(v, 3) for v in single['tick_ms']]}, median "
+        f"{single['median_tick_ms']:.3f}, realtime factor {single['realtime']:.1f}")
+    no_plain_mac("multihost")
+    mh_check_launches("multihost", c, MH_HOSTS * MH_FREQ)
+    # Each stream's audio, in the order it was fed, against the oracle.
+    by_stream: dict = {}
+    for tick, (feed, _, _) in enumerate(schedule):
+        for row, key in feed.items():
+            by_stream[key] = outs[row, tick]
+    snr = {}
+    for s in sorted({s for s, _ in by_stream}):
+        n_blocks = max(j for t_, j in by_stream if t_ == s) + 1
+        y = np.concatenate([by_stream[s, j] for j in range(n_blocks)])
+        y = y.transpose(0, 2, 1).reshape(-1, COUT)
+        n = n_blocks * T * fragm - (MH_PARTIAL if s == 0 else 0)
+        assert np.all(np.isfinite(y)) and y.shape == (n_blocks * T * fragm, COUT)
+        snr[s] = snr_db(oracle(ir, audio[s][:n]), y[:n])
+    log(f"  SNR vs float64 oracle by stream {{{', '.join(f'{s}: {v:.2f}' for s, v in snr.items())}}} "
+        f"dB (limit {SNR_LIMIT_DB})")
+    assert max(snr.values()) <= SNR_LIMIT_DB, f"multihost SNR {max(snr.values()):.2f} dB"
+    # The pause and the reset against a server that never paused slot 2
+    # and gave stream 8 a fresh slot 5: every (stream, block) both
+    # servers computed is equal bit for bit.
+    ref_srv = mh.SlotServer(mesh, bank, s_local=MH_S_LOCAL, t=T)
+    ref_schedule = mh_schedule(fragm, reference=True)
+    ref_outs, _, _ = mh_run(ref_srv, ref_schedule, rows, audio)
+    ref_by_stream = {key: ref_outs[row, tick] for tick, (feed, _, _) in enumerate(ref_schedule)
+                     for row, key in feed.items()}
+    common = sorted(set(by_stream) & set(ref_by_stream))
+    differ = [k for k in common if not np.array_equal(by_stream[k], ref_by_stream[k])]
+    paused = [k for k in common if k[0] == 2]
+    reset = [k for k in common if k[0] == MH_NEW_STREAM]
+    log(f"  bit-equal to the reference server: {len(common) - len(differ)} of {len(common)} "
+        f"(stream, block) outputs, the paused slot's {len(paused)} and the reset slot's "
+        f"{len(reset)} among them")
+    assert len(paused) == MH_TICKS - 1 and len(reset) == 2, (paused, reset)
+    assert not differ, f"outputs differ from the reference server: {differ}"
+    # Device time of a tick with every slot fed, by kernel (PyTorch's
+    # copies and selects included), from torch.profiler on the reference
+    # server; the idle share sets it against the median tick above.
+    full = {row: mh_block(audio[row], 0, fragm) for row in rows}
+    by_kernel = kernel_device_ms(lambda: ref_srv.tick(full), iters=5)
+    device_ms = sum(by_kernel.values())
+    idle = 1.0 - device_ms / single["median_tick_ms"]
+    log(f"  device ms per tick {device_ms:.4f} "
+        f"({', '.join(f'{k} {v:.4f}' for k, v in by_kernel.items())}); idle share "
+        f"{100 * idle:.2f}% of the median tick")
+    shape_errs = mh_shape_checks(dev)
+    # Two processes, one host each.
+    before = build_listing()
+    t0 = time.perf_counter()
+    workers, got = mh_workers(tmp, cfg, dev)
+    wall = time.perf_counter() - t0
+    assert build_listing() == before, "a multihost worker rebuilt the kernels"
+    assert sorted(got) == sorted(outs), (sorted(got), sorted(outs))
+    diff = max(float(np.max(np.abs(got[k] - outs[k]))) for k in outs)
+    for w in workers:
+        log(f"  worker {w['rank']}: launches {w['launches']}; tick ms "
+            f"{[round(v, 3) for v in w['tick_ms']]}, median {w['median_tick_ms']:.3f}, "
+            f"realtime factor {w['realtime']:.1f}; torch.distributed calls in its ticks "
+            f"{w['dist_calls_in_tick']}; another host's row: {w['foreign_row_error']!r}")
+        assert not w["dist_calls_in_tick"], "a tick called torch.distributed"
+        assert w["plain_mac_cuda_calls"] == 0, "a worker ran the plain MAC on CUDA"
+        mh_check_launches(f"multihost worker {w['rank']}", w["launches"], MH_FREQ)
+    log(f"  two processes ({wall:.1f} s): max|two-process - one-process| = {diff:.3e} "
+        f"(limit {MH_PROC_TOL:g})")
+    assert diff <= MH_PROC_TOL, "the two-process run disagrees with the single process"
+    return dict(
+        config=dict(hosts=MH_HOSTS, s_local=MH_S_LOCAL, freq=MH_FREQ, T=T, ticks=MH_TICKS,
+                    taps=SIZE, fragm=fragm, partitions=bank.partitions),
+        single=single, workers=workers, workers_wall_s=wall,
+        device_ms_per_tick=device_ms, device_ms_by_kernel=by_kernel, idle_share=idle,
+        launches={name: c[name] for name in MH_KERNELS},
+        snr_db={str(s): v for s, v in snr.items()}, worst_snr_db=max(snr.values()),
+        bit_equal_outputs=len(common), paused_bit_equal=len(paused),
+        reset_bit_equal=len(reset), max_diff_two_process=diff,
+        max_abs_err_at_phase_shapes=max(shape_errs))
 
 
 class FsOracle:
@@ -1755,7 +2073,8 @@ def main() -> int:
     # Each kernel's launches come from the serving path it belongs to:
     # the fused kernel from shared-filter serving, the split kernels from
     # mixed-filter serving, the window MAC from serve_short and deep, the
-    # row-window FFTs from sharded.  Every phase runs, so every count is
+    # row-window FFTs from sharded (and multihost, in launches_by_phase
+    # with kernel 3's).  Every phase runs, so every count is
     # measured; the whole inverse (ifft_from_half) has no caller.
     with tempfile.TemporaryDirectory(prefix="folve_chip_smoke_") as tmp:
         shared = run_phase("serve_shared", phase_serve_shared, dev, tmp)
@@ -1764,6 +2083,7 @@ def main() -> int:
         short = run_phase("serve_short", phase_serve_short, dev, tmp)
         deep = run_phase("deep", phase_deep, dev)
         sharded = run_phase("sharded", phase_sharded, dev, tmp)
+        multihost = run_phase("multihost", phase_multihost, dev, tmp)
     files = run_phase("filesystem", phase_filesystem, dev, smi)
     cli = run_phase("cli", phase_cli, dev, smi)
     run_phase("dryrun", phase_dryrun)
@@ -1785,6 +2105,8 @@ def main() -> int:
         callers[name] = "serve_mixed"
     results["fdl_mac_split"]["launches_by_phase"]["sharded"] = (
         sharded["launches"]["fdl_mac_split"])
+    results["fdl_mac_split"]["launches_by_phase"]["multihost"] = (
+        multihost["launches"]["fdl_mac_split"])
     results["fdl_mac"]["launches"] = short["launches"] + deep["launches"]
     results["fdl_mac"]["launches_by_phase"] = dict(
         serve_short=short["launches"], deep=deep["launches"])
@@ -1796,6 +2118,8 @@ def main() -> int:
         log(f"  {name} ptxas: {results[name]['ptxas']}")
     for name in ("fft_real_half_rows", "ifft_partial_rows"):
         results[name]["launches"] = sharded["launches"][name]
+        results[name]["launches_by_phase"] = dict(
+            sharded=sharded["launches"][name], multihost=multihost["launches"][name])
     results["ifft_from_half"]["launches"] = None
     line = {"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
@@ -1807,6 +2131,7 @@ def main() -> int:
     log(json.dumps({"filesystem": files}))
     log(json.dumps({"cli": cli}))
     log(json.dumps({"fused_vs_split": split}))
+    log(json.dumps({"multihost": multihost}))
     log(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
