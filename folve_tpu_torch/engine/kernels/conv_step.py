@@ -37,6 +37,7 @@ from folve_tpu_torch.engine.kernels.fdl_mac import fdl_mac_split_plain
 from folve_tpu_torch.engine.kernels.fft_half import fft_real_half_plain
 from folve_tpu_torch.engine.kernels.ifft_half import ifft_ola_plain
 from folve_tpu_torch.engine.rfft import get_plan, plan_tensors
+from folve_tpu_torch.utils.profiling import device_span, span
 
 
 def fused_supported(p: int, cin: int, cout: int, t: int, n: int) -> bool:
@@ -125,48 +126,52 @@ def conv_step_fused(h_perm: torch.Tensor, x: torch.Tensor,
     and ``max_s`` float32 [S] the masked max|y| over the chunk.
     """
     if not x.is_cuda:
-        return conv_step_fused_plain(h_perm, x, hist_re, hist_im, tail,
-                                     valid, n, hist_t)
-    p, cin, cout, two, k = h_perm.shape
-    s, t = x.shape[0], x.shape[1]
-    b = n // 2
-    rows, m2, m1, cols = fused_preshape(n)
-    if (not fused_supported(p, cin, cout, t, n) or two != 2
-            or k != m1 * cols or not 128 <= n <= 16384
-            or x[0, 0].numel() != cin * b
-            or hist_re.numel() != s * (p - 1) * cin * k
-            or hist_im.shape != hist_re.shape
-            or tail.numel() != s * cout * b
-            or tuple(valid.shape) != (s, t)):
-        raise ValueError(
-            f"conv_step_fused: unsupported shapes h {tuple(h_perm.shape)}, "
-            f"x {tuple(x.shape)}, hist {tuple(hist_re.shape)}, "
-            f"tail {tuple(tail.shape)}, valid {tuple(valid.shape)}")
-    for a in (h_perm, x, hist_re, hist_im, tail):
-        if a.dtype != torch.float32:
-            raise TypeError(f"conv_step_fused takes float32, got {a.dtype}")
-    h_perm, x, hist_re, hist_im, tail = (
-        a.contiguous() for a in (h_perm, x, hist_re, hist_im, tail))
-    valid = valid.to(device=x.device, dtype=torch.int32).contiguous()
-    dev = x.device
-    f32 = dict(device=dev, dtype=torch.float32)
-    y = torch.empty(s, t, cout, *x.shape[3:], **f32)
-    hr_o = torch.empty_like(hist_re)
-    hi_o = torch.empty_like(hist_im)
-    tl_o = torch.empty_like(tail)
-    mx = torch.empty(s, **f32)
-    # Scratch spectra of the forward and the MAC.
-    xs = torch.empty(s, t, cin, 2, k, **f32)
-    ys = torch.empty(s, t, cout, 2, k, **f32)
-    pt = plan_tensors(n, dev)
-    P_, I_ = _build.P, _build.I
-    fn = _build.function("conv_step", "folve_conv_step",
-                         [P_] * 14 + [I_] * 8 + [P_])
-    conv_step_fused.launches += 1
-    _build.check(fn(*(_build.ptr(a) for a in (
-        h_perm, x, hist_re, hist_im, tail, valid, y, hr_o, hi_o, tl_o, mx,
-        xs, ys, pt.packed)), s, p, cin, cout, t, m1, m2,
-        int(hist_t), _build.stream_of(x)), "conv_step_fused")
+        with span("kernel.conv_step_fused"):
+            return conv_step_fused_plain(h_perm, x, hist_re, hist_im, tail,
+                                         valid, n, hist_t)
+    with span("engine.prep"):
+        p, cin, cout, two, k = h_perm.shape
+        s, t = x.shape[0], x.shape[1]
+        b = n // 2
+        rows, m2, m1, cols = fused_preshape(n)
+        if (not fused_supported(p, cin, cout, t, n) or two != 2
+                or k != m1 * cols or not 128 <= n <= 16384
+                or x[0, 0].numel() != cin * b
+                or hist_re.numel() != s * (p - 1) * cin * k
+                or hist_im.shape != hist_re.shape
+                or tail.numel() != s * cout * b
+                or tuple(valid.shape) != (s, t)):
+            raise ValueError(
+                f"conv_step_fused: unsupported shapes h {tuple(h_perm.shape)}, "
+                f"x {tuple(x.shape)}, hist {tuple(hist_re.shape)}, "
+                f"tail {tuple(tail.shape)}, valid {tuple(valid.shape)}")
+        for a in (h_perm, x, hist_re, hist_im, tail):
+            if a.dtype != torch.float32:
+                raise TypeError(f"conv_step_fused takes float32, got {a.dtype}")
+        h_perm, x, hist_re, hist_im, tail = (
+            a.contiguous() for a in (h_perm, x, hist_re, hist_im, tail))
+        valid = valid.to(device=x.device, dtype=torch.int32).contiguous()
+        dev = x.device
+        pt = plan_tensors(n, dev)
+    with span("engine.alloc"):
+        f32 = dict(device=dev, dtype=torch.float32)
+        y = torch.empty(s, t, cout, *x.shape[3:], **f32)
+        hr_o = torch.empty_like(hist_re)
+        hi_o = torch.empty_like(hist_im)
+        tl_o = torch.empty_like(tail)
+        mx = torch.empty(s, **f32)
+        # Scratch spectra of the forward and the MAC.
+        xs = torch.empty(s, t, cin, 2, k, **f32)
+        ys = torch.empty(s, t, cout, 2, k, **f32)
+    with device_span("kernel.conv_step_fused"):
+        P_, I_ = _build.P, _build.I
+        fn = _build.function("conv_step", "folve_conv_step",
+                             [P_] * 14 + [I_] * 8 + [P_])
+        conv_step_fused.launches += 1
+        _build.check(fn(*(_build.ptr(a) for a in (
+            h_perm, x, hist_re, hist_im, tail, valid, y, hr_o, hi_o, tl_o, mx,
+            xs, ys, pt.packed)), s, p, cin, cout, t, m1, m2,
+            int(hist_t), _build.stream_of(x)), "conv_step_fused")
     return y, hr_o, hi_o, tl_o, mx
 
 

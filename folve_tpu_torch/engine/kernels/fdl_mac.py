@@ -40,6 +40,7 @@ import torch
 
 from folve_tpu_torch.engine.kernels import _build
 from folve_tpu_torch.engine.rfft import _einsum
+from folve_tpu_torch.utils.profiling import device_span, span
 
 
 def fdl_mac_einsum(h_spec: torch.Tensor, xall_re: torch.Tensor,
@@ -109,35 +110,39 @@ def fdl_mac(h_spec: torch.Tensor, xall_re: torch.Tensor,
     ``[S, T, Cout, K]`` (unbatched ``[T, Cout, K]``).  At most 16
     channel pairs."""
     if not xall_re.is_cuda:
-        return fdl_mac_plain(h_spec, xall_re, xall_im, t)
-    unbatched = xall_re.dim() == 3
-    if unbatched:
-        xall_re, xall_im = xall_re.unsqueeze(0), xall_im.unsqueeze(0)
-    s, w, cin, k = xall_re.shape
-    p, hcin, cout, two, hk = h_spec.shape[-5:]
-    shared = h_spec.dim() == 5
-    if (h_spec.dim() not in (5, 6) or t < 1 or w != t + p - 1
-            or hcin != cin or hk != k or two != 2 or cin * cout > 16
-            or xall_im.shape != xall_re.shape
-            or (not shared and h_spec.shape[0] != s)):
-        raise ValueError(
-            f"fdl_mac: shapes h {tuple(h_spec.shape)}, xall "
-            f"{tuple(xall_re.shape)}, t {t}")
-    for a in (h_spec, xall_re, xall_im):
-        if a.dtype != torch.float32:
-            raise TypeError(f"fdl_mac takes float32, got {a.dtype}")
-    h_spec, xall_re, xall_im = (a.contiguous() for a in (h_spec, xall_re, xall_im))
-    yr = torch.empty(s, t, cout, k, device=xall_re.device, dtype=torch.float32)
-    yi = torch.empty_like(yr)
+        with span("kernel.fdl_mac"):
+            return fdl_mac_plain(h_spec, xall_re, xall_im, t)
+    with span("engine.prep"):
+        unbatched = xall_re.dim() == 3
+        if unbatched:
+            xall_re, xall_im = xall_re.unsqueeze(0), xall_im.unsqueeze(0)
+        s, w, cin, k = xall_re.shape
+        p, hcin, cout, two, hk = h_spec.shape[-5:]
+        shared = h_spec.dim() == 5
+        if (h_spec.dim() not in (5, 6) or t < 1 or w != t + p - 1
+                or hcin != cin or hk != k or two != 2 or cin * cout > 16
+                or xall_im.shape != xall_re.shape
+                or (not shared and h_spec.shape[0] != s)):
+            raise ValueError(
+                f"fdl_mac: shapes h {tuple(h_spec.shape)}, xall "
+                f"{tuple(xall_re.shape)}, t {t}")
+        for a in (h_spec, xall_re, xall_im):
+            if a.dtype != torch.float32:
+                raise TypeError(f"fdl_mac takes float32, got {a.dtype}")
+        h_spec, xall_re, xall_im = (a.contiguous() for a in (h_spec, xall_re, xall_im))
+    with span("engine.alloc"):
+        yr = torch.empty(s, t, cout, k, device=xall_re.device, dtype=torch.float32)
+        yi = torch.empty_like(yr)
     h_stride = 0 if shared else p * cin * cout * 2 * k
-    fn = _build.function("fdl_mac", "folve_fdl_mac", [
-        _build.P, _build.L, _build.P, _build.P, _build.P, _build.P,
-        _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.P])
-    fdl_mac.launches += 1
-    _build.check(fn(_build.ptr(h_spec), h_stride, _build.ptr(xall_re),
-                    _build.ptr(xall_im), _build.ptr(yr), _build.ptr(yi),
-                    s, p, cin, cout, t, k, _build.stream_of(xall_re)),
-                 "fdl_mac")
+    with device_span("kernel.fdl_mac"):
+        fn = _build.function("fdl_mac", "folve_fdl_mac", [
+            _build.P, _build.L, _build.P, _build.P, _build.P, _build.P,
+            _build.I, _build.I, _build.I, _build.I, _build.I, _build.I, _build.P])
+        fdl_mac.launches += 1
+        _build.check(fn(_build.ptr(h_spec), h_stride, _build.ptr(xall_re),
+                        _build.ptr(xall_im), _build.ptr(yr), _build.ptr(yi),
+                        s, p, cin, cout, t, k, _build.stream_of(xall_re)),
+                     "fdl_mac")
     if unbatched:
         return yr[0], yi[0]
     return yr, yi
@@ -163,38 +168,42 @@ def fdl_mac_split(h_spec: torch.Tensor, hist_re: torch.Tensor,
     (or ``[T, Cin, K]``).  Returns ``(yr, yi)`` each ``[S, T, Cout, K]``
     (unbatched ``[T, Cout, K]``).  Requires P >= 2."""
     if not xr.is_cuda:
-        return fdl_mac_split_plain(h_spec, hist_re, hist_im, xr, xi)
-    unbatched = xr.dim() == 3
-    if unbatched:
-        hist_re, hist_im, xr, xi = (a.unsqueeze(0)
-                                    for a in (hist_re, hist_im, xr, xi))
-    s, t, cin, k = xr.shape
-    p, hcin, cout, two, hk = h_spec.shape[-5:]
-    shared = h_spec.dim() == 5
-    if (p < 2 or hcin != cin or hk != k or two != 2
-            or tuple(hist_re.shape) != (s, p - 1, cin, k)
-            or hist_im.shape != hist_re.shape or xi.shape != xr.shape
-            or (not shared and h_spec.shape[0] != s)):
-        raise ValueError(
-            f"fdl_mac_split: shapes h {tuple(h_spec.shape)}, hist "
-            f"{tuple(hist_re.shape)}, x {tuple(xr.shape)}")
-    for a in (h_spec, hist_re, hist_im, xr, xi):
-        if a.dtype != torch.float32:
-            raise TypeError(f"fdl_mac_split takes float32, got {a.dtype}")
-    h_spec, hist_re, hist_im, xr, xi = (
-        a.contiguous() for a in (h_spec, hist_re, hist_im, xr, xi))
-    yr = torch.empty(s, t, cout, k, device=xr.device, dtype=torch.float32)
-    yi = torch.empty_like(yr)
+        with span("kernel.fdl_mac_split"):
+            return fdl_mac_split_plain(h_spec, hist_re, hist_im, xr, xi)
+    with span("engine.prep"):
+        unbatched = xr.dim() == 3
+        if unbatched:
+            hist_re, hist_im, xr, xi = (a.unsqueeze(0)
+                                        for a in (hist_re, hist_im, xr, xi))
+        s, t, cin, k = xr.shape
+        p, hcin, cout, two, hk = h_spec.shape[-5:]
+        shared = h_spec.dim() == 5
+        if (p < 2 or hcin != cin or hk != k or two != 2
+                or tuple(hist_re.shape) != (s, p - 1, cin, k)
+                or hist_im.shape != hist_re.shape or xi.shape != xr.shape
+                or (not shared and h_spec.shape[0] != s)):
+            raise ValueError(
+                f"fdl_mac_split: shapes h {tuple(h_spec.shape)}, hist "
+                f"{tuple(hist_re.shape)}, x {tuple(xr.shape)}")
+        for a in (h_spec, hist_re, hist_im, xr, xi):
+            if a.dtype != torch.float32:
+                raise TypeError(f"fdl_mac_split takes float32, got {a.dtype}")
+        h_spec, hist_re, hist_im, xr, xi = (
+            a.contiguous() for a in (h_spec, hist_re, hist_im, xr, xi))
+    with span("engine.alloc"):
+        yr = torch.empty(s, t, cout, k, device=xr.device, dtype=torch.float32)
+        yi = torch.empty_like(yr)
     h_stride = 0 if shared else p * cin * cout * 2 * k
-    fn = _build.function("fdl_mac", "folve_fdl_mac_split", [
-        _build.P, _build.L, _build.P, _build.P, _build.P, _build.P,
-        _build.P, _build.P, _build.I, _build.I, _build.I, _build.I,
-        _build.I, _build.I, _build.P])
-    fdl_mac_split.launches += 1
-    _build.check(fn(_build.ptr(h_spec), h_stride, _build.ptr(hist_re),
-                    _build.ptr(hist_im), _build.ptr(xr), _build.ptr(xi),
-                    _build.ptr(yr), _build.ptr(yi), s, p, cin, cout, t, k,
-                    _build.stream_of(xr)), "fdl_mac_split")
+    with device_span("kernel.fdl_mac_split"):
+        fn = _build.function("fdl_mac", "folve_fdl_mac_split", [
+            _build.P, _build.L, _build.P, _build.P, _build.P, _build.P,
+            _build.P, _build.P, _build.I, _build.I, _build.I, _build.I,
+            _build.I, _build.I, _build.P])
+        fdl_mac_split.launches += 1
+        _build.check(fn(_build.ptr(h_spec), h_stride, _build.ptr(hist_re),
+                        _build.ptr(hist_im), _build.ptr(xr), _build.ptr(xi),
+                        _build.ptr(yr), _build.ptr(yi), s, p, cin, cout, t, k,
+                        _build.stream_of(xr)), "fdl_mac_split")
     if unbatched:
         return yr[0], yi[0]
     return yr, yi

@@ -54,6 +54,7 @@ from folve_tpu_torch.engine.rfft import (
     half_bins,
     ifft_to_real,
 )
+from folve_tpu_torch.utils.profiling import device_span, span
 
 # Partitions the split MAC kernel takes below T (the JAX package's
 # _UNROLL_LIMIT): past it the window kernel runs.
@@ -139,11 +140,13 @@ def _mac(h_spec: torch.Tensor, hist_re: torch.Tensor, hist_im: torch.Tensor,
         y_re, y_im = fdl_mac_split(h_spec, hist_re, hist_im, xr, xi)
         if t >= p - 1:
             return y_re, y_im, xr[:, t - (p - 1):], xi[:, t - (p - 1):]
-        return (y_re, y_im, torch.cat([hist_re[:, t:], xr], dim=1),
-                torch.cat([hist_im[:, t:], xi], dim=1))
+        with device_span("engine.state"):
+            return (y_re, y_im, torch.cat([hist_re[:, t:], xr], dim=1),
+                    torch.cat([hist_im[:, t:], xi], dim=1))
     # P = 1: the window is the new spectra alone (no empty hist joins it).
-    xall_re = torch.cat([hist_re, xr], dim=1) if p > 1 else xr
-    xall_im = torch.cat([hist_im, xi], dim=1) if p > 1 else xi
+    with span("engine.prep"):
+        xall_re = torch.cat([hist_re, xr], dim=1) if p > 1 else xr
+        xall_im = torch.cat([hist_im, xi], dim=1) if p > 1 else xi
     mac = fdl_mac if route == "window" else fdl_mac_einsum
     y_re, y_im = mac(h_spec, xall_re, xall_im, t)
     return y_re, y_im, xall_re[:, t:], xall_im[:, t:]
@@ -162,19 +165,21 @@ def _overlap_add(y2: torch.Tensor, tail: torch.Tensor):
     new_tail)``."""
     b = tail.shape[-1]
     heads, tails = y2[..., :b], y2[..., b:]
-    carry_in = torch.cat([tail[:, None], tails[:, :-1]], dim=1)
-    return heads + carry_in, tails[:, -1]
+    with device_span("engine.state"):
+        carry_in = torch.cat([tail[:, None], tails[:, :-1]], dim=1)
+        return heads + carry_in, tails[:, -1]
 
 
 def _monitor(y: torch.Tensor, max_abs: torch.Tensor,
              n_valid: torch.Tensor) -> torch.Tensor:
     """The clipping monitor: running max |y| over valid frames only."""
     t, b = y.shape[1], y.shape[3]
-    frame = (torch.arange(t, device=y.device)[:, None] * b
-             + torch.arange(b, device=y.device)[None, :])
-    valid = frame[None, :, None, :] < n_valid.to(y.device)[:, None, None, None]
-    blk = torch.where(valid, y.abs(), torch.zeros((), device=y.device))
-    return torch.maximum(max_abs, blk.amax(dim=(1, 2, 3)))
+    with device_span("engine.monitor"):
+        frame = (torch.arange(t, device=y.device)[:, None] * b
+                 + torch.arange(b, device=y.device)[None, :])
+        valid = frame[None, :, None, :] < n_valid.to(y.device)[:, None, None, None]
+        blk = torch.where(valid, y.abs(), torch.zeros((), device=y.device))
+        return torch.maximum(max_abs, blk.amax(dim=(1, 2, 3)))
 
 
 def _batched_step(h_spec: torch.Tensor, fragm: int, states: StreamState,
@@ -199,8 +204,9 @@ def _batched_step(h_spec: torch.Tensor, fragm: int, states: StreamState,
         y, new_tail = _overlap_add(ifft_to_real(y_re, y_im, n), states.tail)
     # 4. Clipping monitor over valid frames only.
     max_abs = _monitor(y, states.max_abs, n_valid)
-    return StreamState(new_re.contiguous(), new_im.contiguous(),
-                       new_tail.contiguous(), max_abs), y
+    with device_span("engine.state"):
+        return StreamState(new_re.contiguous(), new_im.contiguous(),
+                           new_tail.contiguous(), max_abs), y
 
 
 def _k1_window(fragm: int, bins: int, freq_shards: int,
@@ -268,12 +274,14 @@ def chunk_step(bank: FilterBank, state: StreamState, x, n_valid=None):
     device step.  Partial final blocks are zero-padded by the caller;
     ``n_valid`` = genuine frames in the chunk (clipping monitor).
     Returns ``(new_state, y)`` with ``y`` float32 [T, Cout, fragm]."""
-    x = _f32(x, bank.device)
-    t = x.shape[0]
-    nv = _n_valid(n_valid, 1, t * bank.fragm, bank.device)
-    new, y = _batched_step(bank.h_spec, bank.fragm, stack_states([state]),
-                           x[None], nv)
-    return unstack_state(new, 0), y[0]
+    with device_span("engine.step"):
+        with span("engine.prep"):
+            x = _f32(x, bank.device)
+            t = x.shape[0]
+            nv = _n_valid(n_valid, 1, t * bank.fragm, bank.device)
+            states = stack_states([state])
+        new, y = _batched_step(bank.h_spec, bank.fragm, states, x[None], nv)
+        return unstack_state(new, 0), y[0]
 
 
 def block_step(bank: FilterBank, state: StreamState, x):
@@ -286,9 +294,11 @@ def batched_chunk_step(bank: FilterBank, states: StreamState, x, n_valid):
     """Many streams with per-stream filters of one shape: ``bank.h_spec``
     is [S, P, Cin, Cout, 2, K], ``states`` batched, ``x`` [S, T, Cin,
     fragm], ``n_valid`` [S]."""
-    x = _f32(x, bank.device)
-    nv = _n_valid(n_valid, x.shape[0], x.shape[1] * bank.fragm, bank.device)
-    return _batched_step(bank.h_spec, bank.fragm, states, x, nv)
+    with device_span("engine.step"):
+        with span("engine.prep"):
+            x = _f32(x, bank.device)
+            nv = _n_valid(n_valid, x.shape[0], x.shape[1] * bank.fragm, bank.device)
+        return _batched_step(bank.h_spec, bank.fragm, states, x, nv)
 
 
 # Many streams through one shared filter: the same step with an
@@ -335,30 +345,41 @@ def serving_chunk_step(bank: FilterBank, states: StreamState, x, n_valid,
     [S, T, Cin, fragm], ``n_valid`` [S].  Runs as the one fused kernel
     when the shape allows (:func:`fused_serving_supported`), else as the
     split three-kernel step; same semantics either way."""
-    x = _f32(x, bank.device)
-    s, t = x.shape[0], x.shape[1]
-    nv = _n_valid(n_valid, s, t * bank.fragm, bank.device)
-    if not fused_serving_supported(bank, t):
-        return _batched_step(bank.h_spec, bank.fragm, states, x, nv)
-    y, hr, hi, tl, mx = conv_step_fused(
-        h_perm if h_perm is not None else eager_h_perm(bank),
-        x, states.hist_re, states.hist_im, states.tail,
-        _valid_frames(nv, t, bank.fragm), 2 * bank.fragm)
-    return StreamState(hr, hi, tl, torch.maximum(states.max_abs, mx)), y
+    with device_span("engine.step"):
+        with span("engine.prep"):
+            x = _f32(x, bank.device)
+            s, t = x.shape[0], x.shape[1]
+            nv = _n_valid(n_valid, s, t * bank.fragm, bank.device)
+            fused = fused_serving_supported(bank, t)
+            if fused:
+                valid = _valid_frames(nv, t, bank.fragm)
+                h = h_perm if h_perm is not None else eager_h_perm(bank)
+        if not fused:
+            return _batched_step(bank.h_spec, bank.fragm, states, x, nv)
+        y, hr, hi, tl, mx = conv_step_fused(
+            h, x, states.hist_re, states.hist_im, states.tail, valid, 2 * bank.fragm)
+        with device_span("engine.monitor"):
+            mx = torch.maximum(states.max_abs, mx)
+        return StreamState(hr, hi, tl, mx), y
 
 
 def single_chunk_step(bank: FilterBank, state: StreamState, x,
                       n_valid=None, h_perm=None):
     """:func:`chunk_step` for one stream, through the fused kernel when
     the shape allows (the lone-stream pump)."""
-    x = _f32(x, bank.device)
-    t = x.shape[0]
-    if not fused_serving_supported(bank, t):
-        return chunk_step(bank, state, x, n_valid)
-    new, y = serving_chunk_step(bank, stack_states([state]), x[None],
-                                t * bank.fragm if n_valid is None else n_valid,
-                                h_perm)
-    return unstack_state(new, 0), y[0]
+    with device_span("engine.step"):
+        with span("engine.prep"):
+            x = _f32(x, bank.device)
+            t = x.shape[0]
+            fused = fused_serving_supported(bank, t)
+            if fused:
+                states = stack_states([state])
+        if not fused:
+            return chunk_step(bank, state, x, n_valid)
+        new, y = serving_chunk_step(bank, states, x[None],
+                                    t * bank.fragm if n_valid is None else n_valid,
+                                    h_perm)
+        return unstack_state(new, 0), y[0]
 
 
 class FusedServingCarry(typing.NamedTuple):
@@ -418,11 +439,16 @@ def fused_serving_step_pre(bank: FilterBank, carry: FusedServingCarry, x5,
     """Steady-state fused serving step on pre-shaped arrays: ``x5``
     [S, T, Cin, rows, m2]; returns ``(carry', y5)`` with ``y5`` [S, T,
     Cout, rows, m2].  Same semantics as :func:`serving_chunk_step`."""
-    x5 = _f32(x5, bank.device)
-    s, t = x5.shape[0], x5.shape[1]
-    nv = _n_valid(n_valid, s, t * bank.fragm, bank.device)
-    y5, hr, hi, tl, mx = conv_step_fused(
-        h_perm if h_perm is not None else eager_h_perm(bank),
-        x5, carry.hist_re, carry.hist_im, carry.tail,
-        _valid_frames(nv, t, bank.fragm), 2 * bank.fragm, hist_t=True)
-    return FusedServingCarry(hr, hi, tl, torch.maximum(carry.max_abs, mx)), y5
+    with device_span("engine.step"):
+        with span("engine.prep"):
+            x5 = _f32(x5, bank.device)
+            s, t = x5.shape[0], x5.shape[1]
+            nv = _n_valid(n_valid, s, t * bank.fragm, bank.device)
+            valid = _valid_frames(nv, t, bank.fragm)
+            h = h_perm if h_perm is not None else eager_h_perm(bank)
+        y5, hr, hi, tl, mx = conv_step_fused(
+            h, x5, carry.hist_re, carry.hist_im, carry.tail, valid, 2 * bank.fragm,
+            hist_t=True)
+        with device_span("engine.monitor"):
+            mx = torch.maximum(carry.max_abs, mx)
+        return FusedServingCarry(hr, hi, tl, mx), y5

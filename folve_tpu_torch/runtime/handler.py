@@ -26,6 +26,7 @@ from folve_tpu_torch.audio.flac import FlacEncoder
 from folve_tpu_torch.audio.source import open_source
 from folve_tpu_torch.audio.types import Container
 from folve_tpu_torch.runtime.conversion_buffer import ConversionBuffer
+from folve_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from folve_tpu_torch.runtime.filesystem import FolveFilesystem
@@ -577,6 +578,10 @@ class ConvolveFileHandler(FileHandler):
     # ----------------------------------------------------------------- read
 
     def read(self, size: int, offset: int) -> bytes:
+        with span("handler.read", stream=id(self._processor)):
+            return self._read(size, offset)
+
+    def _read(self, size: int, offset: int) -> bytes:
         if self._error:
             raise OSError(5, "handler in error state")
         current_filesize = self._buffer.file_size()
@@ -885,11 +890,12 @@ class ConvolveFileHandler(FileHandler):
     # ---------------------------------------------------------------- close
 
     def _write_frames(self, frames: np.ndarray) -> None:
-        if np.issubdtype(frames.dtype, np.integer):
-            # Device-quantized bulk-pump output (processor.pump_chunk).
-            self._buffer.append(self._encoder.write_int(frames))
-        else:
-            self._buffer.append(self._encoder.write_float(frames))
+        with span("handler.encode", stream=id(self._processor)):
+            if np.issubdtype(frames.dtype, np.integer):
+                # Device-quantized bulk-pump output (processor.pump_chunk).
+                self._buffer.append(self._encoder.write_int(frames))
+            else:
+                self._buffer.append(self._encoder.write_float(frames))
         # Patch newly-known seekpoints HERE, on the pump thread: the
         # encoder's frame-offset list and handle are only ever touched
         # by the thread that writes/finishes the encode, so no lock is

@@ -29,7 +29,7 @@ from folve_tpu_torch.filters.compiler import (
     FilterCompileError,
     compile_config_file,
 )
-from folve_tpu_torch.utils.profiling import LatencyStats
+from folve_tpu_torch.utils.profiling import LatencyStats, span
 
 
 def _quantize(y: torch.Tensor, bits: int) -> torch.Tensor:
@@ -219,16 +219,18 @@ class SoundProcessor:
             if fl.qbits is not None and not _is_quantized(y):
                 y = _quantize(y, fl.qbits)
             y, ev = _to_host_async(y)
-        t0 = time.perf_counter()
-        if ev is not None:
-            ev.synchronize()
-        out = _unpack24(y.numpy())
-        t1 = time.perf_counter()
-        self.fetch_s += t1 - t0
-        tb = out.shape[0]
-        out = out.transpose(0, 2, 1).reshape(tb * self.fragm, -1)
-        fl.sink(out[: fl.r])
-        self.encode_s += time.perf_counter() - t1
+        with span("pump.fetch", stream=id(self)):
+            t0 = time.perf_counter()
+            if ev is not None:
+                ev.synchronize()
+            out = _unpack24(y.numpy())
+            t1 = time.perf_counter()
+            self.fetch_s += t1 - t0
+        with span("pump.encode", stream=id(self)):
+            tb = out.shape[0]
+            out = out.transpose(0, 2, 1).reshape(tb * self.fragm, -1)
+            fl.sink(out[: fl.r])
+            self.encode_s += time.perf_counter() - t1
 
     def drain_pipeline(self) -> None:
         """Emit the pipelined chunk, if any.  Every non-bulk path that
@@ -248,7 +250,8 @@ class SoundProcessor:
         needed = self.fragm - self._input_pos
         assert needed > 0, "call write_processed() before refilling"
         self._output_pos = -1
-        data = source.read_float(needed)
+        with span("pump.decode", stream=id(self)):
+            data = source.read_float(needed)
         r = data.shape[0]
         if r:
             self._in_buf[self._input_pos : self._input_pos + r] = data
@@ -264,21 +267,23 @@ class SoundProcessor:
             self._in_buf[self._input_pos :] = 0.0
         x = self._in_buf.T[None]  # [1, Cin, fragm]
         with self.latency.timer():
-            t0 = time.perf_counter()
-            if self.scheduler is not None:
-                fut = self.scheduler.submit(
-                    self.bank, self._state, x, int(self._input_pos),
-                    stream=id(self), quantize_bits=quantize_bits,
-                )
-                self._state, y = fut.result()
-            else:
-                self._state, y = self._step(x, self._input_pos)
-            if quantize_bits is not None and not _is_quantized(y):
-                y = _quantize(y, quantize_bits)
-            t1 = time.perf_counter()
-            self.dispatch_s += t1 - t0
-            self._out_buf = _unpack24(y[0].cpu().numpy()).T  # [fragm, Cout]
-            self.fetch_s += time.perf_counter() - t1
+            with span("pump.dispatch", stream=id(self)):
+                t0 = time.perf_counter()
+                if self.scheduler is not None:
+                    fut = self.scheduler.submit(
+                        self.bank, self._state, x, int(self._input_pos),
+                        stream=id(self), quantize_bits=quantize_bits,
+                    )
+                    self._state, y = fut.result()
+                else:
+                    self._state, y = self._step(x, self._input_pos)
+                if quantize_bits is not None and not _is_quantized(y):
+                    y = _quantize(y, quantize_bits)
+                t1 = time.perf_counter()
+                self.dispatch_s += t1 - t0
+            with span("pump.fetch", stream=id(self)):
+                self._out_buf = _unpack24(y[0].cpu().numpy()).T  # [fragm, Cout]
+                self.fetch_s += time.perf_counter() - t1
         self._output_pos = 0
 
     def pump_chunk(self, source, sink, max_blocks: int,
@@ -293,7 +298,8 @@ class SoundProcessor:
         assert self._input_pos == 0 and self.pending_writes() == 0
         self._output_pos = -1
         b = self.fragm
-        data = source.read_float(max_blocks * b)
+        with span("pump.decode", stream=id(self)):
+            data = source.read_float(max_blocks * b)
         r = data.shape[0]
         if r == 0:
             self.drain_pipeline()
@@ -305,30 +311,31 @@ class SoundProcessor:
             padded.reshape(t, b, self.bank.ninp).transpose(0, 2, 1))
         with self.latency.timer():
             prev = self._inflight
-            t0 = time.perf_counter()
-            if self.scheduler is not None:
-                if prev is not None and prev.future is not None:
-                    # Chain the state and queue chunk N-1's quantize and
-                    # copy ahead of chunk N.
-                    state, y = prev.future.result()
-                    self._state = state
-                    if prev.qbits is not None and not _is_quantized(y):
-                        y = _quantize(y, prev.qbits)
-                    prev.y, prev.event = _to_host_async(y)
-                    prev.future, prev.qbits = None, None
-                fut = self.scheduler.submit(
-                    self.bank, self._state, x, r, stream=id(self),
-                    quantize_bits=quantize_bits,
-                )
-                self._inflight = _Inflight(fut, None, None, r, quantize_bits,
-                                           sink)
-            else:
-                self._state, y = self._step(x, r)
-                if quantize_bits is not None:
-                    y = _quantize(y, quantize_bits)
-                y, ev = _to_host_async(y)
-                self._inflight = _Inflight(None, y, ev, r, None, sink)
-            self.dispatch_s += time.perf_counter() - t0
+            with span("pump.dispatch", stream=id(self)):
+                t0 = time.perf_counter()
+                if self.scheduler is not None:
+                    if prev is not None and prev.future is not None:
+                        # Chain the state and queue chunk N-1's quantize and
+                        # copy ahead of chunk N.
+                        state, y = prev.future.result()
+                        self._state = state
+                        if prev.qbits is not None and not _is_quantized(y):
+                            y = _quantize(y, prev.qbits)
+                        prev.y, prev.event = _to_host_async(y)
+                        prev.future, prev.qbits = None, None
+                    fut = self.scheduler.submit(
+                        self.bank, self._state, x, r, stream=id(self),
+                        quantize_bits=quantize_bits,
+                    )
+                    self._inflight = _Inflight(fut, None, None, r, quantize_bits,
+                                               sink)
+                else:
+                    self._state, y = self._step(x, r)
+                    if quantize_bits is not None:
+                        y = _quantize(y, quantize_bits)
+                    y, ev = _to_host_async(y)
+                    self._inflight = _Inflight(None, y, ev, r, None, sink)
+                self.dispatch_s += time.perf_counter() - t0
             if prev is not None:
                 self._emit(prev)  # D2H + encode of N-1 overlap chunk N
         return r

@@ -58,7 +58,7 @@ from folve_tpu_torch.parallel.serving import (
     make_sharded_serving_step,
 )
 from folve_tpu_torch.runtime.processor import _quantize
-from folve_tpu_torch.utils.profiling import LatencyStats
+from folve_tpu_torch.utils.profiling import LatencyStats, span
 
 _PLACED_CAP = 16
 _STATE_FIELDS = ("hist_re", "hist_im", "tail", "max_abs")
@@ -76,9 +76,10 @@ def _bucket(n: int, max_batch: int) -> int:
 
 
 class _Job:
-    __slots__ = ("bank", "state", "x", "n_valid", "quantize_bits", "future")
+    __slots__ = ("bank", "state", "x", "n_valid", "quantize_bits", "future",
+                 "stream", "t_submit")
 
-    def __init__(self, bank, state, x, n_valid, quantize_bits=None):
+    def __init__(self, bank, state, x, n_valid, quantize_bits=None, stream=None):
         self.bank = bank
         self.state = state
         self.x = x
@@ -87,6 +88,8 @@ class _Job:
         # batched paths resolve with float audio (callers check dtype).
         self.quantize_bits = quantize_bits
         self.future: Future = Future()
+        self.stream = stream
+        self.t_submit = time.perf_counter()
 
 
 class _FusedSlots:
@@ -229,12 +232,12 @@ class DeviceScheduler:
         self.fused_fast_steps = 0  # ... with a device-resident carry gather
         self.sharded_steps = 0  # steps on the mesh
         self.sharded_fast_steps = 0  # ... with the state gathered on the mesh
-        self.materialized = 0  # carry or slot rows forced back to plain states
-        self.coalesce_waits = 0  # times the window was actually paid
         self.total_step_s = 0.0
         self.last_step_s = 0.0
         self.last_batch = 0
         self.latency = LatencyStats()
+        # Each job's wait from submit() to the batch that takes it.
+        self.queue_wait = LatencyStats()
 
     def start(self) -> None:
         if self._thread is None:
@@ -280,9 +283,8 @@ class DeviceScheduler:
             if not live:
                 # Superseded batch: materialize this row so the old
                 # batch's device memory is released.
-                self.materialized += 1
                 state = _as_plain_state(state)
-        job = _Job(bank, state, x, n_valid, quantize_bits)
+        job = _Job(bank, state, x, n_valid, quantize_bits, stream)
         sig = _signature(bank) + (np.shape(x)[0],)
         with self._cv:
             now = time.monotonic()
@@ -330,15 +332,15 @@ class DeviceScheduler:
                 if self._coalesce_worthwhile(time.monotonic()):
                     # Hold until the deadline or a full batch: each
                     # submit() notifies, so one wait() would end early.
-                    self.coalesce_waits += 1
-                    deadline = time.monotonic() + self._window_s
-                    while not self._stop and max(
-                        (len(q) for q in self._queues.values()), default=0
-                    ) < self._max_batch:
-                        remaining = deadline - time.monotonic()
-                        if remaining <= 0:
-                            break
-                        self._cv.wait(timeout=remaining)
+                    with span("sched.coalesce"):
+                        deadline = time.monotonic() + self._window_s
+                        while not self._stop and max(
+                            (len(q) for q in self._queues.values()), default=0
+                        ) < self._max_batch:
+                            remaining = deadline - time.monotonic()
+                            if remaining <= 0:
+                                break
+                            self._cv.wait(timeout=remaining)
                 if self._stop:
                     return
                 sig, jobs = max(
@@ -350,6 +352,9 @@ class DeviceScheduler:
             self._execute_or_fail(take)
 
     def _execute_or_fail(self, jobs: List[_Job]) -> None:
+        now = time.perf_counter()
+        for job in jobs:
+            self.queue_wait.record(now - job.t_submit)
         try:
             self._execute(jobs)
         except Exception as e:  # resolve the batch's futures with the error
@@ -359,7 +364,8 @@ class DeviceScheduler:
 
     def _record(self, t0: float, n: int, fused: bool = False) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with span("sched.sync", step=self.steps):
+                torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         self.steps += 1
         self.fused_steps += int(fused)
@@ -423,32 +429,36 @@ class DeviceScheduler:
         # (a path switch, rare).
         for job in jobs:
             job.state = _as_plain_state(job.state)
+        streams = [j.stream for j in jobs]
         if n == 1 and padded == 1:
             # Lone stream: the single-stream step, through the fused
             # kernel when the shape allows; quantization folded in.
             job = jobs[0]
             t0 = time.perf_counter()
-            state, y = single_chunk_step(job.bank, job.state, job.x,
-                                         int(job.n_valid))
-            if job.quantize_bits is not None:
-                y = _quantize(y, job.quantize_bits)
+            with span("sched.step", step=self.steps, streams=streams):
+                state, y = single_chunk_step(job.bank, job.state, job.x,
+                                             int(job.n_valid))
+                if job.quantize_bits is not None:
+                    y = _quantize(y, job.quantize_bits)
             self._record(t0, 1)
             job.future.set_result((state, y))
             return
-        states = stack_states([j.state for j in all_jobs])
-        x = torch.as_tensor(np.stack([np.asarray(j.x, np.float32)
-                                      for j in all_jobs]), device=self.device)
-        n_valid = [int(j.n_valid) for j in all_jobs]
+        with span("sched.stage", step=self.steps, streams=streams):
+            states = stack_states([j.state for j in all_jobs])
+            x = torch.as_tensor(np.stack([np.asarray(j.x, np.float32)
+                                          for j in all_jobs]), device=self.device)
+            n_valid = [int(j.n_valid) for j in all_jobs]
         t0 = time.perf_counter()
-        if shared:
-            new_states, y = serving_chunk_step(bank0, states, x, n_valid)
-        else:
-            specs = tuple(j.bank.h_spec for j in all_jobs)
-            h_spec = self._place(tuple(id(h) for h in specs), specs,
-                                 lambda: torch.stack(specs))
-            bank = FilterBank(h_spec=h_spec, fragm=bank0.fragm,
-                              size=bank0.size)
-            new_states, y = batched_chunk_step(bank, states, x, n_valid)
+        with span("sched.step", step=self.steps, streams=streams):
+            if shared:
+                new_states, y = serving_chunk_step(bank0, states, x, n_valid)
+            else:
+                specs = tuple(j.bank.h_spec for j in all_jobs)
+                h_spec = self._place(tuple(id(h) for h in specs), specs,
+                                     lambda: torch.stack(specs))
+                bank = FilterBank(h_spec=h_spec, fragm=bank0.fragm,
+                                  size=bank0.size)
+                new_states, y = batched_chunk_step(bank, states, x, n_valid)
         self._record(t0, n)
         for i, job in enumerate(jobs):
             job.future.set_result((unstack_state(new_states, i), y[i]))
@@ -464,21 +474,24 @@ class DeviceScheduler:
         fast = parent is not None and all(
             isinstance(s, FusedStateRef) and s.parent is parent for s in states
         )
-        x_h = np.stack([np.asarray(j.x, dtype=np.float32) for j in all_jobs])
-        x5 = torch.as_tensor(stage_x_for_fused(bank0, x_h), device=self.device)
-        nv = [int(j.n_valid) for j in all_jobs]
+        streams = [j.stream for j in jobs]
+        with span("sched.stage", step=self.steps, streams=streams):
+            x_h = np.stack([np.asarray(j.x, dtype=np.float32) for j in all_jobs])
+            x5 = torch.as_tensor(stage_x_for_fused(bank0, x_h), device=self.device)
+            nv = [int(j.n_valid) for j in all_jobs]
         t0 = time.perf_counter()
-        if fast:
-            idx = torch.as_tensor([s.idx for s in states], device=self.device)
-            carry = FusedServingCarry(
-                *(a.index_select(0, idx) for a in parent.carry))
-            self.fused_fast_steps += 1
-        else:
-            carry = carry_from_states(
-                bank0, stack_states([_as_plain_state(s) for s in states]))
-        new_carry, y5 = fused_serving_step_pre(bank0, carry, x5, nv)
-        s, t, cout = y5.shape[:3]
-        y = y5.reshape(s, t, cout, bank0.fragm)
+        with span("sched.step", step=self.steps, streams=streams):
+            if fast:
+                idx = torch.as_tensor([s.idx for s in states], device=self.device)
+                carry = FusedServingCarry(
+                    *(a.index_select(0, idx) for a in parent.carry))
+                self.fused_fast_steps += 1
+            else:
+                carry = carry_from_states(
+                    bank0, stack_states([_as_plain_state(s) for s in states]))
+            new_carry, y5 = fused_serving_step_pre(bank0, carry, x5, nv)
+            s, t, cout = y5.shape[:3]
+            y = y5.reshape(s, t, cout, bank0.fragm)
         self._record(t0, len(jobs), fused=True)
         new_parent = _FusedSlots(new_carry)
         self._register_parent(bank0, new_parent)
@@ -523,25 +536,28 @@ class DeviceScheduler:
             step = make_sharded_serving_step(mesh, bank0.fragm,
                                              shared_bank=shared, gather=fast)
             self._sharded_steps[key] = step
-        x = np.stack([np.asarray(j.x, dtype=np.float32) for j in all_jobs])
-        n_valid = np.asarray([int(j.n_valid) for j in all_jobs], dtype=np.int64)
-        if shared:
-            h_spec = self._placed_bank(mesh, bank0.h_spec)
-        else:
-            h_spec = self._placed_bank_stack(mesh, [j.bank.h_spec for j in all_jobs])
+        streams = [j.stream for j in jobs]
+        with span("sched.stage", step=self.steps, streams=streams):
+            x = np.stack([np.asarray(j.x, dtype=np.float32) for j in all_jobs])
+            n_valid = np.asarray([int(j.n_valid) for j in all_jobs], dtype=np.int64)
+            if shared:
+                h_spec = self._placed_bank(mesh, bank0.h_spec)
+            else:
+                h_spec = self._placed_bank_stack(mesh, [j.bank.h_spec for j in all_jobs])
         t0 = time.perf_counter()
-        if fast:
-            out = step(h_spec, parent.hist_re, parent.hist_im, parent.tail,
-                       parent.max_abs, x, n_valid, [s.idx for s in states])
-            self.sharded_fast_steps += 1
-        else:
-            st = stack_states([
-                StreamState(*(getattr(s, f).to(self.device) for f in _STATE_FIELDS))
-                for s in states])
-            out = step(h_spec, st.hist_re, st.hist_im, st.tail, st.max_abs,
-                       x, n_valid)
-        new_re, new_im, new_tail, new_max, y = out
-        y_host = y.gather("cpu")  # the audio leaves; the states stay
+        with span("sched.step", step=self.steps, streams=streams):
+            if fast:
+                out = step(h_spec, parent.hist_re, parent.hist_im, parent.tail,
+                           parent.max_abs, x, n_valid, [s.idx for s in states])
+                self.sharded_fast_steps += 1
+            else:
+                st = stack_states([
+                    StreamState(*(getattr(s, f).to(self.device) for f in _STATE_FIELDS))
+                    for s in states])
+                out = step(h_spec, st.hist_re, st.hist_im, st.tail, st.max_abs,
+                           x, n_valid)
+            new_re, new_im, new_tail, new_max, y = out
+            y_host = y.gather("cpu")  # the audio leaves; the states stay
         self._record(t0, len(jobs))
         self.sharded_steps += 1
         new_parent = _SlotStates(new_re, new_im, new_tail, new_max)

@@ -281,7 +281,9 @@ class StatusServer:
                 f"{sched.last_batch}, step mean {mean_ms:.2f}ms / "
                 f"p50 {sched.latency.percentile_ms(50):.2f}ms / "
                 f"p99 {sched.latency.percentile_ms(99):.2f}ms / last "
-                f"{sched.last_step_s * 1000:.2f}ms</p>"
+                f"{sched.last_step_s * 1000:.2f}ms, queue wait p50 "
+                f"{sched.queue_wait.percentile_ms(50):.2f}ms / p99 "
+                f"{sched.queue_wait.percentile_ms(99):.2f}ms</p>"
             )
 
         stats = fs.open_file_cache.get_stats()

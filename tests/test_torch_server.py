@@ -178,7 +178,8 @@ def test_profile_endpoint_writes_a_torch_trace(tmp_path):
     assert not status._profile_thread.is_alive()
     assert os.path.isfile(os.path.join(log_dir, "trace.json"))
     trace = analyze_device_trace(log_dir)
-    assert set(trace) == {"device_time_ms", "ops"}  # no mem_bw_frac
+    # No mem_bw_frac; the program's spans and the idle by span beside the ops.
+    assert set(trace) == {"device_time_ms", "ops", "spans", "idle_by_span"}
     assert isinstance(trace["ops"], list) and trace["device_time_ms"] >= 0
     assert analyze_device_trace(str(tmp_path / "empty")) == {}
     fs.device_scheduler.stop()
