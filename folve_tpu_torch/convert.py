@@ -43,7 +43,8 @@ def state_to_numpy(state) -> tuple:
 def carry_from_numpy(hist_re, hist_im, tail, max_abs,
                      device="cuda") -> FusedServingCarry:
     """A :class:`FusedServingCarry` from the JAX carry's fields
-    (hist [S, P-1, Cin, cols, m1], tail [S, Cout, rows, m2], max [S])."""
+    (hist [S, P-1, Cin, cols, m1] oldest row first, so ring head 0;
+    tail [S, Cout, rows, m2], max [S])."""
     dev = resolve_device(device)
     return FusedServingCarry(_t(hist_re, dev), _t(hist_im, dev),
                              _t(tail, dev), _t(max_abs, dev))

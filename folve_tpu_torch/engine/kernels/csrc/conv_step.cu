@@ -29,13 +29,15 @@
 //      one value of H and one new window row (the 8 rows a step needs
 //      slide through registers), so 32 FMAs cost two shared loads.  H is
 //      read once per group of streams: once per call at the flagship.
-//      The blocks of the first group of blocks t also write the new hist,
-//      hist_out[s, j] = W[s, T + j] (j < P-1), which covers both T >= P-1
-//      and the T < P-1 shift;
+//      In copy-out mode the blocks of the first group of blocks t also
+//      write the new hist, hist_out[s, j] = W[s, T + j] (j < P-1), which
+//      covers both T >= P-1 and the T < P-1 shift;
 //   C  inverse_kernel, block (s, t, o): radix::inverse (the body of
 //      ifft_half.cu) on Y[s, t, o] with the overlap-add store
 //      (radix::OlaStore): deterministic two-term atomicAdds into y[s, t]
-//      and y[s, t+1], or the new tail at the last t;
+//      and y[s, t+1], or the new tail at the last t.  In ring mode it
+//      first writes this chunk's spectra X[s, t, i] (i = o mod Cout) of
+//      the last min(T, P-1) blocks t into the hist in place (below);
 //   D  max_kernel, block (s, t, o, span of samples): the masked max|y|
 //      (frames < valid[s, t]) folded into max_out[s] with an integer
 //      atomicMax on the float's bits (values >= 0, so the result does not
@@ -56,8 +58,24 @@
 // forward's rows out in kk order, phase C loads Y's rows from kk order;
 // both move neighbouring threads over neighbouring q, which is coalesced
 // in device memory and free of bank conflicts (odd row stride).
-// hist_in and hist_out are separate buffers: a tile's export would
-// overwrite window rows that other blocks still read.
+//
+// The hist, two ways.  Copy-out (head < 0; a canonical StreamState's
+// callers): hist_in and hist_out are separate buffers, row w oldest
+// first, and phase B writes all P-1 rows of hist_out: a tile's export
+// into hist_in would overwrite window rows that other blocks still read.
+// Ring mode (head >= 0; the serving carry): the hist is a ring whose
+// oldest row sits in slot head, so window row w < P-1 is slot (head + w)
+// mod (P-1), and hist_out is hist_in.  Of the new hist W[T .. T+P-2],
+// rows still in the old hist stay in their slots; only X[t], t >=
+// T - min(T, P-1), is written, into slot (head + t) mod (P-1), the slot
+// of an old row that this step reads and the next one does not.  The
+// caller's head becomes (head + T) mod (P-1).  Phase C writes them: a
+// slot's old row is read by every chunk group whose window reaches it,
+// and the blocks of one launch run in no order, so no block of phase B
+// knows when the last reader of a slot is done; the stream starts phase
+// C after all of phase B.  Phase C reads X again for it (the copy-out
+// export does the same, and reads the old rows besides), and writes
+// min(T, P-1) rows a stream where copy-out writes P-1.
 #include <algorithm>
 
 #include "fft_radix.cuh"
@@ -85,13 +103,14 @@ struct Args {
   const float* hist_im;
   const float* tail_in;  // [S, Cout, B]
   float* y;              // [S, T, Cout, B]
-  float* hist_re_out;    // like hist_re
+  float* hist_re_out;    // like hist_re; hist_re itself in ring mode
   float* hist_im_out;
   float* tail_out;       // [S, Cout, B]
   float* max_out;        // [S]
   float* X;              // scratch [S, T, Cin, 2, K], bin kk
   float* Y;              // scratch [S, T, Cout, 2, K], bin kk, times wn
   int S, P, Cin, Cout, T, hist_t;
+  int head;              // ring slot of the oldest row, or -1: copy-out
 };
 
 // Phase B's blocks: sg streams and cg chunks of kTBlocks blocks t (one
@@ -143,12 +162,14 @@ __device__ __forceinline__ int hist_bin(const Args& a, int kk) {
 }
 
 // Window row w of stream s, input channel i, at bin kk (hist layout bin
-// hb): hist[w] for w < P-1, else this chunk's spectrum X[w - (P-1)].
+// hb): hist row w (slot (head + w) mod (P-1) in ring mode) for w < P-1,
+// else this chunk's spectrum X[w - (P-1)].
 __device__ __forceinline__ float2 window(const Args& a, int K, int s, int w,
                                          int i, int kk, int hb) {
   const int pm1 = a.P - 1;
   if (w < pm1) {
-    const long off = (((long)s * pm1 + w) * a.Cin + i) * K + hb;
+    const int r = w + max(a.head, 0), slot = r < pm1 ? r : r - pm1;
+    const long off = (((long)s * pm1 + slot) * a.Cin + i) * K + hb;
     return make_float2(__ldg(a.hist_re + off), __ldg(a.hist_im + off));
   }
   const long off = (((long)s * a.T + w - pm1) * a.Cin + i) * 2 * K + kk;
@@ -286,9 +307,9 @@ __global__ void __launch_bounds__(kMacWarps * kTileBins, 2)
     }
   }
 
-  // The new hist of the group's streams: hist_out[s, j] = window row
-  // T + j, j < P-1; element idx of the tile is (ss, j, i, bin).
-  if (c0 != 0) return;
+  // Copy-out: the new hist of the group's streams, hist_out[s, j] =
+  // window row T + j, j < P-1; element idx of the tile is (ss, j, i, bin).
+  if (c0 != 0 || a.head >= 0) return;
   const int pm1 = Pn - 1, tb = min(TB, K - tile * TB);
   copy_batched(
       ns * pm1 * Cin * tb, nt,
@@ -312,11 +333,31 @@ template <int M1, int M2>
 __global__ void __launch_bounds__(radix::Shape<M1, M2>::THREADS, 1)
     inverse_kernel(Args a, Plan P) {
   using Sh = radix::Shape<M1, M2>;
-  constexpr int LD = Sh::LD, NT = Sh::THREADS, K = M1 * Sh::COLS;
+  constexpr int LD = Sh::LD, NT = Sh::THREADS, COLS = Sh::COLS, K = M1 * COLS;
   constexpr int B = M1 * M2 / 2;
   extern __shared__ float smem[];
   float2* sm = reinterpret_cast<float2*>(smem);
   const int item = blockIdx.x;
+  const int o = item % a.Cout, st = item / a.Cout;
+  const int t = st % a.T, s = st / a.T, pm1 = a.P - 1;
+  // Ring mode: X[s, t, i] becomes the hist row of slot (head + t) mod
+  // (P-1) for the last min(T, P-1) blocks t (phase B has read every old
+  // row; see the note at the top).
+  if (a.head >= 0 && t >= a.T - min(a.T, pm1)) {
+    const long slot = (long)s * pm1 + (a.head + t) % pm1;
+    for (int i = o; i < a.Cin; i += a.Cout) {
+      const float* xr = a.X + ((long)st * a.Cin + i) * 2 * K;
+      const long dst = (slot * a.Cin + i) * K;
+      copy_batched(
+          K, NT,
+          [&](int kk) { return make_float2(__ldg(xr + kk), __ldg(xr + K + kk)); },
+          [&](int kk, float2 v) {
+            const long d = dst + hist_bin<M1, COLS>(a, kk);
+            a.hist_re_out[d] = v.x;
+            a.hist_im_out[d] = v.y;
+          });
+    }
+  }
   const float* yr = a.Y + (long)item * 2 * K;
   const float* yi = yr + K;
   copy_batched(
@@ -324,8 +365,6 @@ __global__ void __launch_bounds__(radix::Shape<M1, M2>::THREADS, 1)
       [&](int kk, float2 v) { sm[(kk % M1) * LD + kk / M1] = v; });
   __syncthreads();
   radix::inverse<M1, M2>(sm, P, 0, M1, [&] {
-    const int o = item % a.Cout, st = item / a.Cout;
-    const int t = st % a.T, s = st / a.T;
     return radix::OlaStore{
         a.y + (long)item * B,
         t + 1 < a.T ? a.y + (long)(item + a.Cout) * B : nullptr,
@@ -362,14 +401,15 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // Shapes as conv_step.py's wrapper documents them; X [S, T, Cin, 2, K]
 // and Y [S, T, Cout, 2, K] scratch; plan: packed plan factors.
-// n = m1*m2 from 128 to 16384.  Four launches on `stream`; returns the
-// first launch error.
+// n = m1*m2 from 128 to 16384.  head < 0: copy-out into hist_*_out;
+// 0 <= head < P-1: ring mode, hist_*_out are hist_* (written in place).
+// Four launches on `stream`; returns the first launch error.
 extern "C" int folve_conv_step(
     const float* h, const float* x, const float* hist_re,
     const float* hist_im, const float* tail_in, const int* valid, float* y,
     float* hist_re_out, float* hist_im_out, float* tail_out, float* max_out,
     float* X, float* Y, const float* plan, int S, int P, int Cin, int Cout,
-    int T, int m1, int m2, int hist_t, void* stream) {
+    int T, int m1, int m2, int hist_t, int head, void* stream) {
   const Plan pl = folve::make_plan(plan, m1, m2);
   return radix::with_sizes(m1, m2, [&](auto sz) {
     using Z = decltype(sz);
@@ -387,7 +427,7 @@ extern "C" int folve_conv_step(
     const Args a{h,           x,           hist_re,  hist_im, tail_in,
                  y,           hist_re_out, hist_im_out, tail_out, max_out,
                  X,           Y,           S,        P,       Cin,
-                 Cout,        T,           hist_t};
+                 Cout,        T,           hist_t,   head};
     const auto st = (cudaStream_t)stream;
     cudaError_t err = cudaFuncSetAttribute(
         fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::SMEM);

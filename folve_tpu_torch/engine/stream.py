@@ -37,6 +37,7 @@ from folve_tpu_torch.engine.kernels.conv_step import (
     fused_preshape,
     fused_supported,
     permute_h_for_fused,
+    unroll_ring,
 )
 from folve_tpu_torch.engine.kernels.fdl_mac import (
     fdl_mac,
@@ -386,14 +387,17 @@ class FusedServingCarry(typing.NamedTuple):
     """Batched serving state in the fused kernel's pre-shaped layouts.
 
     ``hist_re``/``hist_im``: [S, P-1, Cin, cols, m1] — the kernel's
-    transposed tile layout; ``tail``: [S, Cout, rows, m2]; ``max_abs``:
-    [S].  Convert with :func:`carry_from_states` /
+    transposed tile layout, a ring whose oldest row is slot ``head``;
+    ``tail``: [S, Cout, rows, m2]; ``max_abs``: [S]; ``head``: a host
+    int, the same for every stream (each step advances all of them by T
+    blocks).  Convert with :func:`carry_from_states` /
     :func:`states_from_carry`."""
 
     hist_re: torch.Tensor
     hist_im: torch.Tensor
     tail: torch.Tensor
     max_abs: torch.Tensor
+    head: int = 0
 
 
 def fused_carry_init(bank: FilterBank, s: int) -> FusedServingCarry:
@@ -407,7 +411,8 @@ def fused_carry_init(bank: FilterBank, s: int) -> FusedServingCarry:
 
 
 def carry_from_states(bank: FilterBank, states: StreamState) -> FusedServingCarry:
-    """Batched StreamState (canonical flat bins) -> pre-shaped carry."""
+    """Batched StreamState (canonical flat bins) -> pre-shaped carry,
+    head 0."""
     p, cin, cout, _, k = bank.h_spec.shape
     rows, m2, m1, cols = fused_preshape(2 * bank.fragm)
     s = states.hist_re.shape[0]
@@ -418,10 +423,12 @@ def carry_from_states(bank: FilterBank, states: StreamState) -> FusedServingCarr
 
 
 def states_from_carry(bank: FilterBank, carry: FusedServingCarry) -> StreamState:
-    """Inverse of :func:`carry_from_states`."""
+    """Inverse of :func:`carry_from_states`: the hist unrolled by the
+    head, oldest row first."""
     p, cin, cout, _, k = bank.h_spec.shape
     s = carry.hist_re.shape[0]
-    untr = lambda h: h.transpose(-1, -2).reshape(s, p - 1, cin, k)
+    untr = lambda h: unroll_ring(h, carry.head).transpose(-1, -2).reshape(
+        s, p - 1, cin, k)
     return StreamState(untr(carry.hist_re), untr(carry.hist_im),
                        carry.tail.reshape(s, cout, bank.fragm), carry.max_abs)
 
@@ -438,7 +445,11 @@ def fused_serving_step_pre(bank: FilterBank, carry: FusedServingCarry, x5,
                            n_valid, h_perm=None):
     """Steady-state fused serving step on pre-shaped arrays: ``x5``
     [S, T, Cin, rows, m2]; returns ``(carry', y5)`` with ``y5`` [S, T,
-    Cout, rows, m2].  Same semantics as :func:`serving_chunk_step`."""
+    Cout, rows, m2].  Same semantics as :func:`serving_chunk_step`.
+
+    The kernel runs in ring mode: it writes the step's new hist rows into
+    ``carry``'s hist in place and advances the head, so ``carry`` is
+    consumed (``carry'`` holds the same hist tensors)."""
     with device_span("engine.step"):
         with span("engine.prep"):
             x5 = _f32(x5, bank.device)
@@ -448,7 +459,8 @@ def fused_serving_step_pre(bank: FilterBank, carry: FusedServingCarry, x5,
             h = h_perm if h_perm is not None else eager_h_perm(bank)
         y5, hr, hi, tl, mx = conv_step_fused(
             h, x5, carry.hist_re, carry.hist_im, carry.tail, valid, 2 * bank.fragm,
-            hist_t=True)
+            hist_t=True, head=carry.head)
         with device_span("engine.monitor"):
             mx = torch.maximum(carry.max_abs, mx)
-        return FusedServingCarry(hr, hi, tl, mx), y5
+        head = (carry.head + t) % (bank.partitions - 1)
+        return FusedServingCarry(hr, hi, tl, mx, head), y5

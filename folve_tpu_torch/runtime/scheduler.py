@@ -12,8 +12,9 @@ Shared-filter batches (and a lone stream whose shape allows it) run the
 fused conv-step kernel; their state stays on the device between steps
 as rows of a :class:`FusedServingCarry`, referenced by
 :class:`FusedStateRef` and gathered with ``index_select``.  The kernel
-writes new state buffers, so replicated padding rows never write into
-job 0's state.
+updates the gathered carry's hist ring in place; the gather is a new
+buffer, so neither the parent batch nor job 0's row sees the writes of
+replicated padding rows.
 
 With a ``mesh`` (:func:`folve_tpu_torch.parallel.make_serving_mesh`),
 batches whose banks split into the mesh's freq shards run the sharded
@@ -48,6 +49,7 @@ from folve_tpu_torch.engine.stream import (
     single_chunk_step,
     stack_states,
     stage_x_for_fused,
+    unroll_ring,
     unstack_state,
 )
 from folve_tpu_torch.parallel.serving import (
@@ -103,8 +105,9 @@ class _FusedSlots:
 
 class FusedStateRef:
     """Duck-typed :class:`StreamState` view into a :class:`_FusedSlots`
-    batch.  Field access materializes the canonical layout (only path
-    switches and resets ever do)."""
+    batch.  Field access materializes the canonical layout, the hist
+    unrolled by the carry's head (only path switches and resets ever
+    do)."""
 
     __slots__ = ("parent", "idx")
 
@@ -112,15 +115,18 @@ class FusedStateRef:
         self.parent = parent
         self.idx = idx
 
-    @property
-    def hist_re(self):
-        h = self.parent.carry.hist_re[self.idx]  # [P-1, Cin, cols, m1]
+    def _hist(self, ring):
+        # [P-1, Cin, cols, m1], oldest row first
+        h = unroll_ring(ring[self.idx], self.parent.carry.head, 0)
         return h.transpose(-1, -2).reshape(h.shape[0], h.shape[1], -1)
 
     @property
+    def hist_re(self):
+        return self._hist(self.parent.carry.hist_re)
+
+    @property
     def hist_im(self):
-        h = self.parent.carry.hist_im[self.idx]
-        return h.transpose(-1, -2).reshape(h.shape[0], h.shape[1], -1)
+        return self._hist(self.parent.carry.hist_im)
 
     @property
     def tail(self):
@@ -483,8 +489,10 @@ class DeviceScheduler:
         with span("sched.step", step=self.steps, streams=streams):
             if fast:
                 idx = torch.as_tensor([s.idx for s in states], device=self.device)
+                # The rows of one parent share its ring head.
                 carry = FusedServingCarry(
-                    *(a.index_select(0, idx) for a in parent.carry))
+                    *(getattr(parent.carry, f).index_select(0, idx)
+                      for f in _STATE_FIELDS), head=parent.carry.head)
                 self.fused_fast_steps += 1
             else:
                 carry = carry_from_states(

@@ -15,9 +15,13 @@ indices do:
      tile staged by step and the window rows (window row w from the hist
      for w < P-1, else from X, zero past the window's end), a warp's 8
      sums fed by 8 window rows that slide through registers, the weights
-     wn, and the new hist hist_out[j] = W[T + j] in either hist layout
-     from the blocks of the first chunk group;
-  C  the inverse of each (s, t, o) and the overlap-add as two-term sums;
+     wn, and, in copy-out mode, the new hist hist_out[j] = W[T + j] in
+     either hist layout from the blocks of the first chunk group;
+  C  in ring mode (a head: window row w < P-1 is the hist's slot
+     (head + w) mod (P-1)) first X[s, t, i] (i = o mod Cout) into slot
+     (head + t) mod (P-1) of the hist for the last min(T, P-1) blocks t,
+     then the inverse of each (s, t, o) and the overlap-add as two-term
+     sums;
   D  the masked max|y| per stream.
 The spectra themselves come from numpy's FFT in float64.
 """
@@ -51,11 +55,14 @@ def mac_layout(s, p, cout, t):
     return sg, cg, pc
 
 
-def model_step(hp, x, hist_re, hist_im, tail, valid, n, hist_t, layout=None):
+def model_step(hp, x, hist_re, hist_im, tail, valid, n, hist_t, layout=None,
+               head=None):
     """The kernel's function, phase by phase.  ``hp`` [P, Cin, Cout, 2, K]
     in bin order kk; ``x`` [S, T, Cin, B]; the hist [S, P-1, Cin, K]
-    canonical or, with ``hist_t``, in bin order kk; ``tail`` [S, Cout, B];
-    ``valid`` [S, T].  Returns (y, hist_re', hist_im', tail', max)."""
+    canonical or, with ``hist_t``, in bin order kk, oldest row first or,
+    with ``head``, a ring whose oldest row is slot ``head``; ``tail``
+    [S, Cout, B]; ``valid`` [S, T].  Returns (y, hist_re', hist_im',
+    tail', max), the hist a ring too with ``head``."""
     p, cin, cout, _, k = hp.shape
     s_, t_ = x.shape[:2]
     b = n // 2
@@ -80,12 +87,15 @@ def model_step(hp, x, hist_re, hist_im, tail, valid, n, hist_t, layout=None):
 
     def window(s, w, i, kb):
         if w < p - 1:
-            return hist[s, w, i, kb if hist_t else canon(kb)]
+            slot = w if head is None else (head + w) % (p - 1)
+            return hist[s, slot, i, kb if hist_t else canon(kb)]
         return xs[s, w - (p - 1), i, kb]
 
     # B: blocks (tile of TB bins, group of sg streams and cg chunks).
     ys = np.full((s_, t_, cout, k), np.nan, complex)
     hist_out = np.full((s_, p - 1, cin, k), np.nan, complex)
+    if head is not None:  # the ring is written in place
+        hist_out = hist.copy()
     nch = -(-t_ // TT)
     ncg = -(-nch // cg)
     for tile in range(-(-k // TB)):
@@ -127,7 +137,7 @@ def model_step(hp, x, hist_re, hist_im, tail, valid, n, hist_t, layout=None):
                             if t < t_:
                                 ys[s0 + us, t, o, lanes[inb]] = (acc[us, o, uc, j]
                                                                  * wn[canon(kb)])[inb]
-            if c0 == 0:  # the new hist of the group's streams
+            if c0 == 0 and head is None:  # copy-out: the group's new hist
                 for s in range(s0, s0 + ns):
                     for j in range(p - 1):
                         for i in range(cin):
@@ -135,12 +145,17 @@ def model_step(hp, x, hist_re, hist_im, tail, valid, n, hist_t, layout=None):
                                 hist_out[s, j, i, kk if hist_t else canon(kk)] = (
                                     window(s, t_ + j, i, kk))
 
-    # C: inverse of the weighted rectangle, real part; overlap-add.
+    # C: in ring mode the new rows first; inverse of the weighted
+    # rectangle, real part; overlap-add.
     e = np.exp(2j * np.pi * np.outer(np.arange(n), freq.ravel()) / n)
     tail_out = np.zeros((s_, cout, b))
     for s in range(s_):
         for t in range(t_):
             for o in range(cout):
+                if head is not None and t >= t_ - min(t_, p - 1):
+                    for i in range(o, cin, cout):
+                        bins = np.arange(k) if hist_t else canon(np.arange(k))
+                        hist_out[s, (head + t) % (p - 1), i, bins] = xs[s, t, i]
                 v = (e @ ys[s, t, o].reshape(cols, m1).T.ravel()).real
                 y[s, t, o] += v[:b]
                 if t + 1 < t_:
@@ -205,6 +220,82 @@ def test_schedule_model_matches_pallas_hist_t(rng, p, t, fragm, cin, cout, s):
                                          n, interpret=True, passes=6, hist_t=True)
     got = model_step(hp, x, args[2], args[3], tail, valid, n, hist_t=True)
     _close(got, ref)
+
+
+def _tr5(h, s, p, cin, n):
+    plan = rfft.get_plan(n)
+    m1, cols = plan.m1, plan.m2 // 2 + 1
+    return np.ascontiguousarray(h.reshape(s, p - 1, cin, m1, cols).swapaxes(-1, -2))
+
+
+def _pre_args(x, tail, n):
+    plan = rfft.get_plan(n)
+    s, t, cin = x.shape[:3]
+    return x.reshape(s, t, cin, plan.m1 // 2, plan.m2), tail.reshape(
+        tail.shape[0], tail.shape[1], plan.m1 // 2, plan.m2)
+
+
+@pytest.mark.parametrize("p,t,fragm,cin,cout,s,layout,head", [
+    (5, 2, 64, 2, 2, 2, None, 0),        # T < P-1, head 0
+    (5, 2, 64, 2, 2, 2, None, 3),        # T < P-1, the new rows wrap
+    (4, 3, 64, 1, 2, 2, None, 2),        # T = P-1, upmix
+    (4, 6, 64, 2, 2, 1, None, 1),        # T > P-1
+    (11, 19, 64, 2, 2, 3, (2, 2, 8), 7), # passes, stream and chunk groups
+])
+def test_schedule_model_ring_matches_pallas_hist_t(rng, p, t, fragm, cin, cout, s,
+                                                   layout, head):
+    """Ring mode: the model takes the reference's hist rolled by ``head``
+    and its ring, unrolled by the new head, is the reference's hist."""
+    hp, x, hr, hi, tail, valid = _inputs(rng, p, t, fragm, cin, cout, s)
+    n = 2 * fragm
+    hr5, hi5 = _tr5(hr, s, p, cin, n), _tr5(hi, s, p, cin, n)
+    x5, tail4 = _pre_args(x, tail, n)
+    ref = jcs.pallas_conv_step_fused_pre(
+        *(jnp.asarray(a) for a in (hp, x5, hr5, hi5, tail4, valid)), n,
+        interpret=True, passes=6, hist_t=True)
+    ring = lambda h: np.roll(h, head, axis=1)
+    got = list(model_step(hp, x, ring(hr5), ring(hi5), tail, valid, n, hist_t=True,
+                          layout=layout, head=head))
+    new_head = (head + t) % (p - 1)
+    got[1:3] = (np.roll(h.reshape(hr5.shape), -new_head, axis=1) for h in got[1:3])
+    _close(got, ref)
+
+
+def test_schedule_model_ring_chained_states_from_carry(rng):
+    """Three chained ring steps (P = 5, T = 3: head 0, 3, 2, 1, the second
+    step's rows wrapping) against three chained reference steps:
+    ``states_from_carry`` on the model's ring and head gives the
+    reference's oldest-first hist."""
+    import torch
+
+    from folve_tpu_torch.engine import stream as ts
+    from folve_tpu_torch.engine.filter_bank import FilterBank
+
+    p, t, fragm, cin, cout, s = 5, 3, 64, 2, 2, 2
+    n = 2 * fragm
+    hp, _, hr, hi, tail, valid = _inputs(rng, p, t, fragm, cin, cout, s)
+    xs = rng.standard_normal((3, s, t, cin, fragm)).astype(np.float32)
+    jr, ji, jt = _tr5(hr, s, p, cin, n), _tr5(hi, s, p, cin, n), tail
+    mr, mi, mt, head = jr, ji, tail, 0
+    for x in xs:
+        x5, tail4 = _pre_args(x, jt, n)
+        _, jr, ji, jt, _ = (np.asarray(a) for a in jcs.pallas_conv_step_fused_pre(
+            *(jnp.asarray(a) for a in (hp, x5, jr, ji, tail4, valid)), n,
+            interpret=True, passes=6, hist_t=True))
+        jt = jt.reshape(tail.shape)
+        _, mr, mi, mt, _ = model_step(hp, x, mr, mi, mt, valid, n, hist_t=True, head=head)
+        mr, mi = mr.reshape(jr.shape), mi.reshape(ji.shape)
+        head = (head + t) % (p - 1)
+    assert head == 1
+    bank = FilterBank(h_spec=torch.zeros(p, cin, cout, 2, hp.shape[-1]), fragm=fragm,
+                      size=p * fragm)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    carry = ts.FusedServingCarry(f32(mr), f32(mi), f32(mt), torch.zeros(s), head)
+    back = ts.states_from_carry(bank, carry)
+    canon = lambda h: h.swapaxes(-1, -2).reshape(s, p - 1, cin, -1)
+    np.testing.assert_allclose(back.hist_re.numpy(), canon(jr), atol=2e-4)
+    np.testing.assert_allclose(back.hist_im.numpy(), canon(ji), atol=2e-4)
+    np.testing.assert_allclose(back.tail.numpy(), jt, atol=2e-4)
 
 
 def test_mac_layout():

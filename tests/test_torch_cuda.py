@@ -114,24 +114,34 @@ def _fused_case(cuda, rng, p, t, fragm, hist_t, cin=2, cout=2, s=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,t,fragm,hist_t,cin,cout,s", [
-    (4, 6, 64, False, 2, 2, 3),      # T > P-1
-    (5, 2, 256, True, 2, 2, 3),      # T < P-1
-    (4, 3, 64, True, 2, 2, 2),       # T = P-1
-    (3, 1, 64, False, 2, 2, 1),      # T = 1, S = 1
-    (3, 4, 128, True, 1, 2, 2),      # upmix
-    (20, 5, 64, False, 1, 1, 3),     # passes of partitions
-    (9, 20, 64, True, 1, 16, 3),     # chunk groups
-    (16, 8, 8192, True, 2, 2, 3),    # the flagship width
-    (16, 1, 8192, False, 2, 2, 1),   # the lone stream, T = 1
-    (16, 8, 8192, False, 2, 2, 1),   # the lone stream, T = 8
+@pytest.mark.parametrize("p,t,fragm,hist_t,cin,cout,s,head", [
+    (4, 6, 64, False, 2, 2, 3, None),      # T > P-1
+    (5, 2, 256, True, 2, 2, 3, None),      # T < P-1
+    (4, 3, 64, True, 2, 2, 2, None),       # T = P-1
+    (3, 1, 64, False, 2, 2, 1, None),      # T = 1, S = 1
+    (3, 4, 128, True, 1, 2, 2, None),      # upmix
+    (20, 5, 64, False, 1, 1, 3, None),     # passes of partitions
+    (9, 20, 64, True, 1, 16, 3, None),     # chunk groups
+    (16, 8, 8192, True, 2, 2, 3, None),    # the flagship width
+    (16, 1, 8192, False, 2, 2, 1, None),   # the lone stream, T = 1
+    (16, 8, 8192, False, 2, 2, 1, None),   # the lone stream, T = 8
+    (5, 2, 256, True, 2, 2, 3, 3),         # ring: T < P-1, the new rows wrap
+    (4, 6, 64, False, 2, 2, 3, 1),         # ring: T > P-1, canonical hist
+    (9, 20, 64, True, 1, 16, 3, 5),        # ring: chunk groups, T > P-1
+    (25, 1, 8192, True, 2, 2, 3, 23),      # ring: the deep cells' shape, last slot
 ])
-def test_fused_kernel_matches_plain_on_card(cuda, rng, p, t, fragm, hist_t, cin, cout, s):
+def test_fused_kernel_matches_plain_on_card(cuda, rng, p, t, fragm, hist_t, cin, cout,
+                                            s, head):
+    """With a head both write the new rows into their own copy of the
+    ring in place; the whole ring is compared."""
     args = _fused_case(cuda, rng, p, t, fragm, hist_t, cin, cout, s)
-    got = tcs.conv_step_fused(*args, hist_t=hist_t)
-    ref = tcs.conv_step_fused_plain(*args, hist_t=hist_t)
+    ref_args = [a.clone() if torch.is_tensor(a) else a for a in args]
+    got = tcs.conv_step_fused(*args, hist_t=hist_t, head=head)
+    ref = tcs.conv_step_fused_plain(*ref_args, hist_t=hist_t, head=head)
     torch.cuda.synchronize()
     assert _rel_err(got, ref) < 1e-5
+    if head is not None:
+        assert got[1] is args[2] and got[2] is args[3]
 
 
 @pytest.mark.cuda
@@ -144,6 +154,39 @@ def test_fused_kernel_repeat_calls_bit_identical(cuda, rng, hist_t):
     second = tcs.conv_step_fused(*args, hist_t=hist_t)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_fused_ring_matches_copy_out_over_chained_steps(cuda, rng):
+    """Five chained steps at the deep cells' shape (P = 25, T = 1,
+    fragm 8192): the carry's ring (fused_serving_step_pre) against the
+    copy-out route on the same inputs.  Same MAC sums in the same order,
+    so the outputs and the unrolled hist agree bit for bit."""
+    from folve_tpu_torch.engine import stream as ts
+
+    p, t, fragm, s = 25, 1, 8192, 4
+    ir = rng.standard_normal((2, 2, p * fragm - 5)).astype(np.float32) / 400
+    bank = compile_filter_bank(ir, fragm=fragm, device=cuda)
+    hp = ts.eager_h_perm(bank)
+    x = torch.from_numpy(rng.standard_normal((5, s, t, 2, fragm)).astype(np.float32))
+    x = x.to(cuda)
+    nv = torch.full((s,), t * fragm, device=cuda)
+    carry = ts.fused_carry_init(bank, s)
+    hr, hi, tl = (torch.zeros_like(a) for a in carry[:3])
+    valid = torch.full((s, t), fragm, dtype=torch.int32, device=cuda)
+    before = tcs.conv_step_fused.ring_steps
+    for r in range(5):
+        x5 = ts.stage_x_for_fused(bank, x[r])
+        carry, y5 = ts.fused_serving_step_pre(bank, carry, x5, nv, h_perm=hp)
+        y, hr, hi, tl, _ = tcs.conv_step_fused(hp, x5, hr, hi, tl, valid, 2 * fragm,
+                                               hist_t=True)
+        assert torch.equal(y5, y), r
+    torch.cuda.synchronize()
+    assert carry.head == 5 % (p - 1)
+    assert tcs.conv_step_fused.ring_steps - before == 5
+    assert torch.equal(ts.unroll_ring(carry.hist_re, carry.head), hr)
+    assert torch.equal(ts.unroll_ring(carry.hist_im, carry.head), hi)
+    assert torch.equal(carry.tail, tl)
 
 
 @pytest.mark.cuda

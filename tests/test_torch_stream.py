@@ -79,35 +79,80 @@ def test_chunk_step_matches_jax_and_oracle(rng, cin, cout, size, fragm, t, layou
     assert snr_db(oracle(ir, audio[:n]), y) < -90
 
 
-def _serving_setup(rng, p=5, t=2, fragm=64, s=3):
+def _serving_setup(rng, p=5, t=2, fragm=64, s=3, rounds=3):
     ir = rng.standard_normal((2, 2, p * fragm - 7)).astype(np.float32)
     jb = j_bank(ir, fragm=fragm)
     tb = compile_filter_bank(ir, fragm=fragm, device="cpu")
-    x = rng.standard_normal((3, s, t, 2, fragm)).astype(np.float32)
-    nv = np.array([[t * fragm] * s, [t * fragm] * s,
-                   [t * fragm, t * fragm - 9, 1][:s]])
+    x = rng.standard_normal((rounds, s, t, 2, fragm)).astype(np.float32)
+    nv = np.array([[t * fragm] * s] * (rounds - 1)
+                  + [[t * fragm, t * fragm - 9, 1][:s]])
     refs = [_jax_chunks(jb, x[:, i], nv[:, i]) for i in range(s)]
     return tb, x, nv, refs
 
 
 def test_serving_and_fused_pre_match_jax_over_chained_chunks(rng):
-    tb, x, nv, refs = _serving_setup(rng)
-    s = x.shape[1]
-    assert ts.fused_serving_supported(tb, x.shape[2])
-    states = ts.stack_states([ts.init_state(tb, device="cpu")] * s)
-    carry = ts.fused_carry_init(tb, s)
-    for r in range(3):
-        states, y = ts.serving_chunk_step(tb, states, x[r], nv[r])
-        carry, y5 = ts.fused_serving_step_pre(
-            tb, carry, ts.stage_x_for_fused(tb, x[r]), nv[r])
+    """The canonical route and the carry's ring against the JAX package;
+    the ring's head runs 0, 2, 0, 2 (P = 5, T = 2), wraps inside a step's
+    rows (P = 5, T = 3: 0, 3, 2, 1, 0) and steps past T > P-1 (P = 3,
+    T = 5)."""
+    for p, t, rounds in ((5, 2, 3), (5, 3, 4), (3, 5, 3)):
+        tb, x, nv, refs = _serving_setup(rng, p=p, t=t, rounds=rounds)
+        s = x.shape[1]
+        assert ts.fused_serving_supported(tb, t)
+        states = ts.stack_states([ts.init_state(tb, device="cpu")] * s)
+        carry = ts.fused_carry_init(tb, s)
+        for r in range(rounds):
+            states, y = ts.serving_chunk_step(tb, states, x[r], nv[r])
+            carry, y5 = ts.fused_serving_step_pre(
+                tb, carry, ts.stage_x_for_fused(tb, x[r]), nv[r])
+            assert carry.head == (r + 1) * t % (p - 1)
+            for i in range(s):
+                np.testing.assert_allclose(y[i].numpy(), refs[i][1][r], atol=2e-4)
+                np.testing.assert_allclose(
+                    y5[i].reshape(y[i].shape).numpy(), refs[i][1][r], atol=2e-4)
+        back = ts.states_from_carry(tb, carry)
         for i in range(s):
-            np.testing.assert_allclose(y[i].numpy(), refs[i][1][r], atol=2e-4)
-            np.testing.assert_allclose(
-                y5[i].reshape(y[i].shape).numpy(), refs[i][1][r], atol=2e-4)
-    back = ts.states_from_carry(tb, carry)
+            _close_state(ts.unstack_state(states, i), refs[i][0])
+            _close_state(ts.unstack_state(back, i), refs[i][0])
+
+
+def test_fused_scheduler_steps_run_ring_mode_and_serving_chunk_step_does_not(rng):
+    """Every fused scheduler step (the first from head 0, the rest
+    gathered from one parent) runs the kernel in ring mode, and its
+    streams' states read back oldest first; a canonical StreamState's
+    callers keep the copy-out route."""
+    from folve_tpu_torch.engine.kernels import conv_step as tcs
+    from folve_tpu_torch.runtime.scheduler import DeviceScheduler
+    from tests.test_torch_runtime import _submit_round
+
+    fragm, t, s, rounds = 64, 3, 4, 3
+    ir = rng.standard_normal((2, 2, 5 * fragm - 7)).astype(np.float32)
+    tb = compile_filter_bank(ir, fragm=fragm, device="cpu")
+    x = rng.standard_normal((rounds, s, t, 2, fragm)).astype(np.float32)
+    nv = [t * fragm] * s
+    sched = DeviceScheduler(max_batch=s, window_s=0.5, device="cpu")
+    states = [ts.init_state(tb, device="cpu")] * s
+    before = tcs.conv_step_fused.ring_steps
+    try:
+        for r in range(rounds):
+            out = _submit_round(sched, [tb] * s, states, x[r], nv)
+            states = [o[0] for o in out]
+    finally:
+        sched.stop()
+    assert sched.fused_steps == sched.steps == rounds
+    assert sched.fused_fast_steps == rounds - 1
+    assert tcs.conv_step_fused.ring_steps - before == rounds
+    assert states[0].parent.carry.head == rounds * t % 4
+    ref = ts.stack_states([ts.init_state(tb, device="cpu")] * s)
+    before = tcs.conv_step_fused.ring_steps
+    for r in range(rounds):
+        ref, _ = ts.serving_chunk_step(tb, ref, x[r], nv)
+    ts.single_chunk_step(tb, ts.init_state(tb, device="cpu"), x[0, 0])
+    assert tcs.conv_step_fused.ring_steps == before
     for i in range(s):
-        _close_state(ts.unstack_state(states, i), refs[i][0])
-        _close_state(ts.unstack_state(back, i), refs[i][0])
+        for f in ("hist_re", "hist_im", "tail", "max_abs"):
+            np.testing.assert_allclose(getattr(states[i], f).numpy(),
+                                       getattr(ref, f)[i].numpy(), atol=1e-5)
 
 
 def test_single_chunk_step_matches_jax(rng):
@@ -146,16 +191,21 @@ def test_carry_layouts_match_jax(rng):
               rng.standard_normal((s, p - 1, 2, k)).astype(np.float32),
               rng.standard_normal((s, 2, fragm)).astype(np.float32),
               rng.standard_normal((s,)).astype(np.float32))
+    names = ("hist_re", "hist_im", "tail", "max_abs")
     jcarry = js.carry_from_states(jb, js.StreamState(*map(jnp.asarray, fields)))
     tcarry = ts.carry_from_states(tb, state_from_numpy(*fields, device="cpu"))
-    for a, b in zip(jcarry, tcarry):
-        assert np.asarray(a).tobytes() == b.numpy().tobytes()
-    again = carry_from_numpy(*(np.asarray(a) for a in jcarry), device="cpu")
+    for f in names:
+        assert (np.asarray(getattr(jcarry, f)).tobytes()
+                == getattr(tcarry, f).numpy().tobytes()), f
+    again = carry_from_numpy(*(np.asarray(getattr(jcarry, f)) for f in names),
+                             device="cpu")
     back = ts.states_from_carry(tb, again)
     for a, b in zip(fields, state_to_numpy(back)):
         np.testing.assert_array_equal(a, b)
     z = ts.fused_carry_init(tb, s)
-    assert [tuple(a.shape) for a in z] == [tuple(a.shape) for a in tcarry]
+    assert ([tuple(getattr(z, f).shape) for f in names]
+            == [tuple(getattr(tcarry, f).shape) for f in names])
+    assert tcarry.head == again.head == z.head == 0
 
 
 def test_reset_and_block_step(rng):
