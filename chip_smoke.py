@@ -99,9 +99,11 @@ from folve_tpu_torch.audio.types import SampleCodec
 from folve_tpu_torch.audio.wav import write_wav
 from folve_tpu_torch.engine.kernels import _build
 from folve_tpu_torch.engine.kernels.conv_step import (
+    all_paths,
     conv_step_fused,
     conv_step_fused_plain,
     fused_preshape,
+    live_paths,
     permute_h_for_fused,
 )
 from folve_tpu_torch.engine.kernels.fdl_mac import (
@@ -130,6 +132,10 @@ from folve_tpu_torch.engine.rfft import get_plan, half_bins
 SIZE, FRAGM, P, CIN, COUT, S, T = 131072, 8192, 16, 2, 2, 8, 8
 N = 2 * FRAGM
 K = half_bins(N)
+DENSE = all_paths(CIN, COUT)  # the flagship is true stereo: every pair live
+# 5.1 bass management (FLAC's order L R C LFE Ls Rs): each main to itself,
+# each main and LFE to the LFE channel's output, the subwoofer.
+BASS_CH, BASS_SUB, BASS_MAINS = 6, 3, (0, 1, 2, 4, 5)
 RATE = 44100
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth.
@@ -341,16 +347,17 @@ def check_kernel(name: str, got, ref) -> float:
     return err
 
 
-def fused_inputs(cu, rng, hp, s: int, t: int, hist_t: bool) -> tuple:
+def fused_inputs(cu, rng, hp, s: int, t: int, hist_t: bool, cin: int = CIN,
+                 cout: int = COUT) -> tuple:
     """Seeded inputs of kernel 1 at the flagship width for ``s`` streams of
     ``t`` blocks: x and tail pre-shaped, the hist in the layout ``hist_t``
     names, and a ragged ``valid`` (the last stream ends inside its last
     block, the one before it halfway through the chunk)."""
     b = FRAGM
     rows, m2, m1, cols = fused_preshape(N)
-    xs = cu(rng.standard_normal((s, t, CIN, rows, m2)))
-    tl = cu(rng.standard_normal((s, COUT, rows, m2)))
-    shape = (s, P - 1, CIN, cols, m1) if hist_t else (s, P - 1, CIN, K)
+    xs = cu(rng.standard_normal((s, t, cin, rows, m2)))
+    tl = cu(rng.standard_normal((s, cout, rows, m2)))
+    shape = (s, P - 1, cin, cols, m1) if hist_t else (s, P - 1, cin, K)
     h_re, h_im = cu(rng.standard_normal(shape)), cu(rng.standard_normal(shape))
     nv = np.full(s, t * b)
     nv[-1] -= b // 2 + 3
@@ -377,8 +384,9 @@ def fused_vs_split(cu, rng) -> dict:
     tl = cu(rng.standard_normal((S, COUT, b)))
     valid = torch.full((S, T), b, dtype=torch.int32, device=x.device)
     hr_t, hi_t = permute_h_for_fused(hr, N), permute_h_for_fused(hi, N)
-    fused = lambda: conv_step_fused(hp, x, hr_t, hi_t, tl, valid, N, hist_t=True)
-    fused_canonical = lambda: conv_step_fused(hp, x, hr, hi, tl, valid, N)
+    fused = lambda: conv_step_fused(hp, x, hr_t, hi_t, tl, valid, N, hist_t=True,
+                                    paths=DENSE)
+    fused_canonical = lambda: conv_step_fused(hp, x, hr, hi, tl, valid, N, paths=DENSE)
     xr, xi = fft_real_half(x, N)
     yr, yi = fdl_mac_split(h, hr, hi, xr, xi)
 
@@ -470,8 +478,8 @@ def phase_kernels(dev, results: dict) -> dict:
     for s, t in ((S, T), (1, 1), (1, T)):
         for hist_t in (True, False):
             args = fused_inputs(cu, rng, hp, s, t, hist_t)
-            got = conv_step_fused(*args, hist_t=hist_t)
-            again = conv_step_fused(*args, hist_t=hist_t)
+            got = conv_step_fused(*args, hist_t=hist_t, paths=DENSE)
+            again = conv_step_fused(*args, hist_t=hist_t, paths=DENSE)
             ref = conv_step_fused_plain(*args, hist_t=hist_t)
             err = check_kernel(f"conv_step_fused(S={s}, T={t}, hist_t={hist_t})", got, ref)
             # The overlap-add's atomics sum two terms per sample: the
@@ -483,10 +491,11 @@ def phase_kernels(dev, results: dict) -> dict:
             case = dict(S=s, T=t, hist_t=hist_t, max_abs_err=err, bit_identical=same)
             if hist_t:  # the serving layout: time the call that was checked
                 timed = timed or args
-                case["graph_ms"] = graph_ms(lambda: conv_step_fused(*args, hist_t=True), 20)
+                case["graph_ms"] = graph_ms(
+                    lambda: conv_step_fused(*args, hist_t=True, paths=DENSE), 20)
             cases.append(case)
     args = timed  # the flagship's, checked first
-    flagship = lambda: conv_step_fused(*args, hist_t=True)
+    flagship = lambda: conv_step_fused(*args, hist_t=True, paths=DENSE)
     # Per (stream, block): Cin forward and Cout inverse FFTs, the MAC, the
     # OLA add.  Bytes: H, x, y, hist in and out (two planes each), tail in
     # and out, valid, max.
@@ -498,7 +507,8 @@ def phase_kernels(dev, results: dict) -> dict:
         max_abs_err=max(c["max_abs_err"] for c in cases), ms=time_ms(flagship, 20),
         graph_ms=cases[0]["graph_ms"],
         plain_ms=time_ms(lambda: conv_step_fused_plain(*args, hist_t=True), 5),
-        library_ms=None, bound_ms=bms, bound_by=bby, cases=cases)
+        library_ms=None, bound_ms=bms, bound_by=bby, cases=cases,
+        bass_managed=fused_bass_managed(cu, rng))
     kernels_window_mac(cu, rng, results)
     kernels_row_windows(cu, rng, results)
     for name, r in results.items():
@@ -506,6 +516,53 @@ def phase_kernels(dev, results: dict) -> dict:
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms (graph "
             f"{r.get('library_graph_ms')}), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return fused_vs_split(cu, rng)
+
+
+def fused_bass_managed(cu, rng) -> dict:
+    """Kernel 1 on a 5.1 bass-managed bank (6 x 6, 11 live paths of 36)
+    at the flagship widths (fragm 8192, P 16, S 8 x T 8, a ragged
+    ``valid``), in copy-out mode (the canonical hist, as the lone-stream
+    pump runs it) and in ring mode (the serving carry, its new rows
+    wrapping past the last slot): the bank's live paths against the
+    plain version over the same paths, and bit for bit against the
+    dense call over all 36 pairs (the pairs left out have all-zero
+    spectra, so they add exact zeros); one launch a call and no other
+    kernel; device times of the live and the dense call."""
+    c = BASS_CH
+    h = cu(np.zeros((P, c, c, 2, K)))
+    for i, o in [(m, m) for m in BASS_MAINS] + [(i, BASS_SUB) for i in range(c)]:
+        h[:, i, o] = cu(rng.standard_normal((P, 2, K)) / 64)
+    hp = permute_h_for_fused(h, N)
+    live, dense = live_paths(hp), all_paths(c, c)
+    assert len(live) == 11, live
+    out = dict(live_paths=len(live), pairs=len(dense))
+    for ring in (False, True):
+        args = fused_inputs(cu, rng, hp, S, T, ring, c, c)
+        head = P - 2 if ring else None
+        call = lambda fn, paths: fn(*(a.clone() if torch.is_tensor(a) else a for a in args),
+                                    hist_t=ring, head=head, paths=paths)
+        name = f"conv_step_fused(6 x 6 bass-managed, {'ring' if ring else 'copy-out'})"
+        reset_counts()
+        terms = conv_step_fused.mac_terms
+        got = call(conv_step_fused, live)
+        assert conv_step_fused.mac_terms - terms == S * T * P * len(live) * K
+        full = call(conv_step_fused, dense)
+        c_ = counts()
+        assert c_["conv_step_fused"] == 2 and sum(c_.values()) == 2, c_
+        err = check_kernel(name, got, call(conv_step_fused_plain, live))
+        same = all(torch.equal(a, b) for a, b in zip(got, full))
+        log(f"  {name}: bit-identical to the dense call over {len(dense)} pairs: {same}; "
+            f"launches {c_['conv_step_fused']}")
+        assert same, f"{name}: the live paths and the dense call differ"
+        # Timed on the checked inputs themselves (a ring call rewrites
+        # the same slots each time).
+        ms = {k: graph_ms(lambda: conv_step_fused(*args, hist_t=ring, head=head, paths=p), 20)
+              for k, p in (("live", live), ("dense", dense))}
+        log(f"  {name}: graph ms live {ms['live']:.4f}, dense {ms['dense']:.4f}")
+        out["ring" if ring else "copy_out"] = dict(
+            max_abs_err=err, bit_identical_to_dense=same, launches=c_["conv_step_fused"],
+            live_graph_ms=ms["live"], dense_graph_ms=ms["dense"])
+    return out
 
 
 def mac_case(cu, rng, kind: str, s: int, p: int, t: int, shared: bool,

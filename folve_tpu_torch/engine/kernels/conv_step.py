@@ -32,30 +32,76 @@ slot ``head``: the step reads it in place and writes only its
 min(T, P-1) new spectra, over the oldest rows, in the same tensors; the
 caller's head becomes ``(head + T) % (P-1)``.
 
+Only the live paths.  A jconvolver conf defines some of its Cin x Cout
+channel pairs; zita-convolver's ``Convproc`` computes only those.  The
+step takes the bank's table of live paths (:func:`live_paths`: the
+pairs whose spectra are not all zero) and its MAC stages, multiplies and
+sums those pairs alone, in the order of the dense sum, so every output
+is bit for bit the dense one.  ``conv_step_fused.mac_terms`` counts the
+complex multiply-adds the launches asked for: (stream, block, partition,
+path, bin).
+
 The gate is a rule on shapes alone (:func:`fused_supported`).  A CUDA
 tensor whose kernel fails to build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from folve_tpu_torch.engine.kernels import _build
-from folve_tpu_torch.engine.kernels.fdl_mac import fdl_mac_split_plain
+from folve_tpu_torch.engine.kernels.fdl_mac import fdl_mac_plain
 from folve_tpu_torch.engine.kernels.fft_half import fft_real_half_plain
 from folve_tpu_torch.engine.kernels.ifft_half import ifft_ola_plain
 from folve_tpu_torch.engine.rfft import get_plan, plan_tensors
 from folve_tpu_torch.utils.profiling import device_span, span
 
 
+# Channels kernel 1 takes on each side: phase B's block holds one warp
+# per output channel of a stream (16 warps at most), and its path table
+# one 16-bit mask of outputs per input.
+MAX_CHANNELS = 16
+
+
 def fused_supported(p: int, cin: int, cout: int, t: int, n: int) -> bool:
     """True when the fused kernel takes these shapes (``n`` = 2*fragm):
-    an FDL of at least two partitions, at most 16 channel pairs, and an
-    even m1 (the output block is the first m1/2 rows of the inverse).
-    The caller checks that the bank is half-layout."""
-    if p < 2 or cin * cout > 16 or t < 1:
+    an FDL of at least two partitions, at most ``MAX_CHANNELS`` input and
+    output channels, and an even m1 (the output block is the first m1/2
+    rows of the inverse).  The caller checks that the bank is
+    half-layout."""
+    if p < 2 or t < 1 or not (1 <= cin <= MAX_CHANNELS and 1 <= cout <= MAX_CHANNELS):
         return False
     return get_plan(n).m1 % 2 == 0
+
+
+def live_paths(h: torch.Tensor) -> tuple:
+    """The (input, output) channel pairs of the spectra ``h`` [P, Cin,
+    Cout, 2, K] that are not all zero, in (input, output) order: the
+    paths a conf defined.  Exact: an all-zero response has an all-zero
+    spectrum, and a pair left out adds only exact zeros.  Synchronizes:
+    compute it once per bank."""
+    p, cin, cout = h.shape[:3]
+    live = h.reshape(p, cin, cout, -1).ne(0).any(dim=3).any(dim=0).cpu()
+    return tuple((i, o) for i in range(cin) for o in range(cout) if live[i, o])
+
+
+def all_paths(cin: int, cout: int) -> tuple:
+    """Every (input, output) pair: the dense MAC."""
+    return tuple((i, o) for i in range(cin) for o in range(cout))
+
+
+@functools.lru_cache(maxsize=64)
+def _path_masks(paths: tuple, cin: int, cout: int) -> torch.Tensor:
+    """int32 [Cin] on the host: bit o of entry i is set for each path
+    (i, o), as ``folve_conv_step`` reads it."""
+    masks = [0] * cin
+    for i, o in paths:
+        if not (0 <= i < cin and 0 <= o < cout):
+            raise ValueError(f"conv_step_fused: path {(i, o)} outside {cin} x {cout}")
+        masks[i] |= 1 << o
+    return torch.tensor(masks, dtype=torch.int32)
 
 
 def fused_preshape(n: int) -> tuple[int, int, int, int]:
@@ -92,11 +138,12 @@ def unroll_ring(hist: torch.Tensor, head: int, axis: int = 1) -> torch.Tensor:
 
 
 def conv_step_fused_plain(h_perm, x, hist_re, hist_im, tail, valid, n,
-                          hist_t=False, head=None):
+                          hist_t=False, head=None, paths=None):
     """Plain PyTorch version of :func:`conv_step_fused`: the split
-    pipeline's plain versions over the stream batch.  With ``head`` it
-    reads the ring in place and writes the new rows into it, as the
-    kernel does."""
+    pipeline's plain versions over the stream batch, the MAC's
+    elementwise products over ``paths`` (default: every pair).  With
+    ``head`` it reads the ring in place and writes the new rows into it,
+    as the kernel does."""
     p, cin, cout, _, k = h_perm.shape
     s, t = x.shape[0], x.shape[1]
     b = n // 2
@@ -106,7 +153,8 @@ def conv_step_fused_plain(h_perm, x, hist_re, hist_im, tail, valid, n,
     if hist_t:
         hr, hi = _canonical(hr, n), _canonical(hi, n)
     xr, xi = fft_real_half_plain(x.reshape(s, t, cin, b), n)
-    yr, yi = fdl_mac_split_plain(h, hr, hi, xr, xi)
+    yr, yi = fdl_mac_plain(h, torch.cat([hr, xr], dim=1), torch.cat([hi, xi], dim=1),
+                           t, all_paths(cin, cout) if paths is None else paths)
     y, new_tail = ifft_ola_plain(yr, yi, tail.reshape(s, cout, b), n)
     frame = torch.arange(b, device=x.device)
     mask = frame[None, None, None, :] < valid.to(x.device)[:, :, None, None]
@@ -138,7 +186,8 @@ def conv_step_fused_plain(h_perm, x, hist_re, hist_im, tail, valid, n,
 def conv_step_fused(h_perm: torch.Tensor, x: torch.Tensor,
                     hist_re: torch.Tensor, hist_im: torch.Tensor,
                     tail: torch.Tensor, valid: torch.Tensor, n: int,
-                    hist_t: bool = False, head: int | None = None):
+                    hist_t: bool = False, head: int | None = None, *,
+                    paths: tuple):
     """Batched fused convolution step.
 
     ``h_perm``: [P, Cin, Cout, 2, K] filter spectra in transposed-tile bin
@@ -148,7 +197,10 @@ def conv_step_fused(h_perm: torch.Tensor, x: torch.Tensor,
     Cin, cols, m1]; oldest row first, or with ``head`` (0 <= head < P-1)
     a ring whose oldest row is slot ``head``.  ``tail``: [S, Cout, B] or
     [S, Cout, rows, m2].  ``valid``: int32 [S, T], valid frames per
-    block (clipping mask).  ``n`` = 2*B.
+    block (clipping mask).  ``n`` = 2*B.  ``paths``: the (input, output)
+    pairs the MAC computes, a superset of :func:`live_paths` of
+    ``h_perm`` (:func:`all_paths` for the dense MAC); the rest of Y gets
+    no term.
 
     Returns ``(y, hist_re', hist_im', tail', max_s)``: ``y`` shaped like
     ``x`` with Cout channels, the state outputs shaped like their inputs,
@@ -156,7 +208,9 @@ def conv_step_fused(h_perm: torch.Tensor, x: torch.Tensor,
     ``head`` the hist outputs are the hist inputs (made contiguous),
     updated in place, with the oldest row at ``(head + T) % (P-1)``:
     the input ring is consumed.  ``conv_step_fused.ring_steps`` counts
-    such calls on either path.
+    such calls on either path.  Each launch adds to ``launches`` and adds
+    its complex multiply-adds, S x T x P x len(paths) x K, to
+    ``mac_terms``: the MAC arithmetic the wrapper asked of the kernel.
     """
     if head is not None:
         p = h_perm.shape[0]
@@ -166,7 +220,7 @@ def conv_step_fused(h_perm: torch.Tensor, x: torch.Tensor,
     if not x.is_cuda:
         with span("kernel.conv_step_fused"):
             return conv_step_fused_plain(h_perm, x, hist_re, hist_im, tail,
-                                         valid, n, hist_t, head)
+                                         valid, n, hist_t, head, paths)
     with span("engine.prep"):
         p, cin, cout, two, k = h_perm.shape
         s, t = x.shape[0], x.shape[1]
@@ -191,6 +245,7 @@ def conv_step_fused(h_perm: torch.Tensor, x: torch.Tensor,
         valid = valid.to(device=x.device, dtype=torch.int32).contiguous()
         dev = x.device
         pt = plan_tensors(n, dev)
+        masks = _path_masks(tuple(paths), cin, cout)
     with span("engine.alloc"):
         f32 = dict(device=dev, dtype=torch.float32)
         y = torch.empty(s, t, cout, *x.shape[3:], **f32)
@@ -206,15 +261,18 @@ def conv_step_fused(h_perm: torch.Tensor, x: torch.Tensor,
     with device_span("kernel.conv_step_fused"):
         P_, I_ = _build.P, _build.I
         fn = _build.function("conv_step", "folve_conv_step",
-                             [P_] * 14 + [I_] * 9 + [P_])
+                             [P_] * 14 + [I_] * 9 + [P_, P_])
         conv_step_fused.launches += 1
+        conv_step_fused.mac_terms += s * t * p * len(paths) * k
         _build.check(fn(*(_build.ptr(a) for a in (
             h_perm, x, hist_re, hist_im, tail, valid, y, hr_o, hi_o, tl_o, mx,
             xs, ys, pt.packed)), s, p, cin, cout, t, m1, m2,
-            int(hist_t), -1 if head is None else head, _build.stream_of(x)),
+            int(hist_t), -1 if head is None else head, _build.ptr(masks),
+            _build.stream_of(x)),
             "conv_step_fused")
     return y, hr_o, hi_o, tl_o, mx
 
 
 conv_step_fused.launches = 0
 conv_step_fused.ring_steps = 0
+conv_step_fused.mac_terms = 0

@@ -21,14 +21,16 @@
 //      also pre-sets the overlap-add targets (y[s, 0] = tail_in,
 //      y[s, t > 0] = 0) and zeroes max_out;
 //   B  mac_kernel, block (tile of 32 bins, group of streams and blocks):
-//        Y[s, t, o] = wn * sum_p sum_i H[p, i, o] * W[s, t + P-1 - p, i]
-//      where window row w is hist[w] for w < P-1, else X[w - (P-1)].  For
-//      each input channel and chunk of partitions the block stages H's
-//      tile and the window rows in shared memory.  A warp owns (s, o, 8
-//      blocks t) and keeps their sums in registers; each step of p reads
-//      one value of H and one new window row (the 8 rows a step needs
-//      slide through registers), so 32 FMAs cost two shared loads.  H is
-//      read once per group of streams: once per call at the flagship.
+//        Y[s, t, o] = wn * sum_i sum_p H[p, i, o] * W[s, t + P-1 - p, i]
+//      over the live paths (i, o) only, where window row w is hist[w]
+//      for w < P-1, else X[w - (P-1)].  For each input channel with a
+//      live path and chunk of partitions the block stages the window
+//      rows and H's tile of that input's live outputs in shared memory.
+//      A warp owns (s, o, 8 blocks t) and keeps their sums in registers;
+//      each step of p reads one value of H and one new window row (the 8
+//      rows a step needs slide through registers), so 32 FMAs cost two
+//      shared loads.  H is read once per group of streams: once per call
+//      at the flagship.
 //      In copy-out mode the blocks of the first group of blocks t also
 //      write the new hist, hist_out[s, j] = W[s, T + j] (j < P-1), which
 //      covers both T >= P-1 and the T < P-1 shift;
@@ -49,6 +51,28 @@
 // A and C run the FFT bodies at one 512-thread block per SM, as the split
 // kernels do, and B runs blocks of its own shape at 64 registers, two per
 // SM.  A CUDA graph captures the four launches.
+//
+// Live paths.  A conf defines some of the Cin x Cout pairs (the 5.1 bass
+// management conf 11 of 36; upstream's demo lowpass 2 of 4), and the
+// rest of H is exactly zero.  The launcher gets a mask of live outputs
+// per input (Paths).  Phase B skips an input with no live output (no
+// window rows staged), stages H only for the live outputs of the input
+// it is on, and a warp whose (i, o) is dead sits the pass out: no zero
+// tile is read and no zero product summed.  A warp's sum still runs over
+// the live inputs in order, p within each, as the dense sum does, so the
+// result equals the dense sum bit for bit (the skipped terms were exact
+// zeros).  Balance: the warps stay one per (stream, output), so under
+// bass management the sub's warps work in all six input passes and each
+// main speaker's warps in one.  The passes are lock-stepped by the
+// staging, so a block still takes Cin passes of staging (the history
+// and X, which dominate its bytes) and the busiest warp's FMAs; the
+// saving is the FMA issue and the H reads (11/36 of them), which leave
+// the SM's pipes to the staging loads and to the block beside it.  The
+// sum of one output is not split across warps: that would change the
+// order of the sum.  A table with every pair live (true stereo) runs an
+// instance compiled without the table, the dense body: the table's
+// lookups and the registers they hold cost a full table about 1.3% of
+// phase B's time on the H100.
 //
 // Layouts.  X, Y and H use the transposed bin order kk = c*m1 + q of the
 // JAX fused kernel (q the k1 row, c the k2 column), so h_perm and a
@@ -92,6 +116,17 @@ constexpr int kTileBins = 32;
 constexpr int kTBlocks = 8;
 constexpr int kMacWarps = 16;
 constexpr size_t kMacSmem = 96 * 1024;
+// Channels on each side (conv_step.py's MAX_CHANNELS): Cout by the warps
+// of a block, Cin and Cout by the path table.
+constexpr int kMaxChannels = 16;
+
+// The live paths, a parameter of phase B alone: bit o of mask[i] is set
+// when input i feeds output o; outs[i] lists those outputs in order,
+// four bits each.
+struct Paths {
+  unsigned mask[kMaxChannels];
+  unsigned long long outs[kMaxChannels];
+};
 // Max: threads of a block, and the samples of one channel it reads.
 constexpr int kMaxThreads = 256;
 constexpr int kMaxSpan = 2048;
@@ -215,13 +250,15 @@ __global__ void __launch_bounds__(radix::Shape<M1, M2>::THREADS, 1)
 
 // Phase B, block (tile, group): grid (tiles, stream groups x chunk
 // groups).  Shared memory per pass (input channel i, partitions p0 ..
-// p0 + np - 1): hs [kp][Cout][kTileBins], H at step k = partition
-// p0 + np-1 - k (zero for k >= np, kp = np rounded up to kTBlocks), then
+// p0 + np - 1): hs [kp][nl][kTileBins], H of i's nl live outputs at step
+// k = partition p0 + np-1 - k (zero for k >= np, kp = np rounded up to
+// kTBlocks), then
 // ws [ns][rows][kTileBins], local row r = window row wbase + r (zero past
-// the window's last row T + P-2).
-template <int M1, int M2>
+// the window's last row T + P-2).  kAll: every pair is live, so the
+// table is not read (the dense body).
+template <int M1, int M2, bool kAll>
 __global__ void __launch_bounds__(kMacWarps * kTileBins, 2)
-    mac_kernel(Args a, Plan P, MacLayout L) {
+    mac_kernel(Args a, Plan P, MacLayout L, Paths paths) {
   constexpr int COLS = radix::Shape<M1, M2>::COLS, K = M1 * COLS;
   constexpr int TB = kTileBins, TT = kTBlocks;
   extern __shared__ float smem[];
@@ -242,14 +279,29 @@ __global__ void __launch_bounds__(kMacWarps * kTileBins, 2)
   for (int j = 0; j < TT; ++j) acc[j] = make_float2(0.f, 0.f);
 
   for (int i = 0; i < Cin; ++i) {
+    // Input i's live outputs: nl of them, this warp's the jo-th if live
+    // (with kAll every output, in order).
+    unsigned long long outs = 0;
+    int nl = Cout, jo = o;
+    bool live = unit;
+    if constexpr (!kAll) {
+      const unsigned mask = paths.mask[i];
+      if (mask == 0) continue;
+      outs = paths.outs[i];
+      nl = __popc(mask);
+      jo = __popc(mask & ((1u << o) - 1u));
+      live = unit && (mask >> o & 1u);
+    }
     for (int p0 = 0; p0 < Pn; p0 += L.pc) {
       const int np = min(L.pc, Pn - p0), kp = (np + TT - 1) / TT * TT;
       const int rows = ncc * TT + kp, wbase = c0 * TT + Pn - p0 - np;
       __syncthreads();  // the previous pass's readers are done
       copy_batched(
-          kp * Cout * TB, nt,
+          kp * nl * TB, nt,
           [&](int idx) {
-            const int k = idx / (Cout * TB), oo = idx / TB % Cout;
+            const int k = idx / (nl * TB);
+            const int oo = kAll ? idx / TB % Cout
+                                : (int)(outs >> (4 * (idx / TB % nl))) & 15;
             const int kb = min(tile * TB + idx % TB, K - 1);
             if (k >= np) return make_float2(0.f, 0.f);
             const float* hp =
@@ -268,11 +320,11 @@ __global__ void __launch_bounds__(kMacWarps * kTileBins, 2)
           },
           [&](int idx, float2 v) { ws[idx] = v; });
       __syncthreads();
-      if (!unit) continue;
+      if (!live) continue;
       // Step k adds H(step k) times local row uc*TT + j + k to acc[j];
       // slot (j + k) % TT holds that row, and after the step the row
       // k + TT replaces the row k, which no later step reads.
-      const float2* hrow = hs + o * TB + lane;
+      const float2* hrow = hs + jo * TB + lane;
       const float2* wrow = ws + (us * rows + uc * TT) * TB + lane;
       float2 slot[TT];
 #pragma unroll
@@ -281,7 +333,7 @@ __global__ void __launch_bounds__(kMacWarps * kTileBins, 2)
 #pragma unroll
         for (int k8 = 0; k8 < TT; ++k8) {
           const int k = kb + k8;
-          const float2 h = hrow[k * Cout * TB];
+          const float2 h = hrow[k * nl * TB];
 #pragma unroll
           for (int j = 0; j < TT; ++j) {
             const float2 v = slot[(j + k8) % TT];
@@ -403,20 +455,35 @@ __global__ void __launch_bounds__(kMaxThreads)
 // and Y [S, T, Cout, 2, K] scratch; plan: packed plan factors.
 // n = m1*m2 from 128 to 16384.  head < 0: copy-out into hist_*_out;
 // 0 <= head < P-1: ring mode, hist_*_out are hist_* (written in place).
-// Four launches on `stream`; returns the first launch error.
+// masks: host int [Cin], bit o of masks[i] set for each path (i, o) the
+// MAC computes; Cin, Cout <= kMaxChannels.  Four launches on `stream`;
+// returns the first launch error.
 extern "C" int folve_conv_step(
     const float* h, const float* x, const float* hist_re,
     const float* hist_im, const float* tail_in, const int* valid, float* y,
     float* hist_re_out, float* hist_im_out, float* tail_out, float* max_out,
     float* X, float* Y, const float* plan, int S, int P, int Cin, int Cout,
-    int T, int m1, int m2, int hist_t, int head, void* stream) {
+    int T, int m1, int m2, int hist_t, int head, const int* masks,
+    void* stream) {
+  if (Cin < 1 || Cin > kMaxChannels || Cout < 1 || Cout > kMaxChannels)
+    return (int)cudaErrorInvalidValue;
+  Paths paths{};
+  for (int i = 0; i < Cin; ++i) {
+    paths.mask[i] = (unsigned)masks[i] & ((1u << Cout) - 1u);
+    for (int o = 0, j = 0; o < Cout; ++o)
+      if (paths.mask[i] >> o & 1u)
+        paths.outs[i] |= (unsigned long long)o << (4 * j++);
+  }
   const Plan pl = folve::make_plan(plan, m1, m2);
   return radix::with_sizes(m1, m2, [&](auto sz) {
     using Z = decltype(sz);
     using Sh = radix::Shape<Z::M1, Z::M2>;
     constexpr int K = Z::M1 * Sh::COLS, B = Z::M1 * Z::M2 / 2;
     auto fwd = forward_kernel<Z::M1, Z::M2>;
-    auto mac = mac_kernel<Z::M1, Z::M2>;
+    bool all = true;
+    for (int i = 0; i < Cin; ++i) all &= paths.mask[i] == (1u << Cout) - 1u;
+    auto mac = all ? mac_kernel<Z::M1, Z::M2, true>
+                   : mac_kernel<Z::M1, Z::M2, false>;
     auto inv = inverse_kernel<Z::M1, Z::M2>;
     const MacLayout L = mac_layout(S, P, Cout, T);
     const size_t smem = mac_smem(Cout, L.sg, L.cg, L.pc);
@@ -440,7 +507,7 @@ extern "C" int folve_conv_step(
     if (err != cudaSuccess) return (int)err;
     fwd<<<S * T * Cin, Sh::THREADS, Sh::SMEM, st>>>(a, pl);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    mac<<<mac_grid, mac_threads, smem, st>>>(a, pl, L);
+    mac<<<mac_grid, mac_threads, smem, st>>>(a, pl, L, paths);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     inv<<<S * T * Cout, Sh::THREADS, Sh::SMEM, st>>>(a, pl);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

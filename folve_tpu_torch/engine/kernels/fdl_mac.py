@@ -12,9 +12,12 @@ allowed: the MAC is elementwise, no matrix product):
   single partition (P = 1, every filter of at most one fragment) and for
   deep FDLs with min(P, T) > 32.
 
-More than 16 channel pairs take :func:`fdl_mac_einsum`, a plain einsum,
-as the JAX package leaves them to XLA and not to a kernel
-(:func:`folve_tpu_torch.engine.stream.mac_route` holds the rule).
+On the split route more than 16 channel pairs take
+:func:`fdl_mac_einsum`, a plain einsum, as the JAX package leaves them to
+XLA and not to a kernel (:func:`folve_tpu_torch.engine.stream.mac_route`
+holds the rule).  The serving steps' shared banks of up to 16 x 16
+channels (the 5.1 and 7.1 confs among them) do not come here: kernel 1
+(``conv_step.py``) takes them, its MAC over the live paths alone.
 
 Bound on the H100: bytes.  The MAC does 8 FLOP per complex term and
 reads H, the history and the new spectra once and writes Y once: at the
@@ -46,8 +49,9 @@ from folve_tpu_torch.utils.profiling import device_span, span
 def fdl_mac_einsum(h_spec: torch.Tensor, xall_re: torch.Tensor,
                    xall_im: torch.Tensor, t: int):
     """The MAC over a concatenated window as one einsum per partition:
-    the route for more than 16 channel pairs (shapes as
-    :func:`fdl_mac_plain`)."""
+    the split route's MAC for more than 16 channel pairs (shapes as
+    :func:`fdl_mac_plain`); kernel 1 takes the serving steps' shared
+    banks of up to 16 x 16."""
     p = h_spec.shape[-5]
     yr = yi = None
     for pi in range(p):
@@ -65,36 +69,45 @@ def fdl_mac_einsum(h_spec: torch.Tensor, xall_re: torch.Tensor,
 
 
 def fdl_mac_plain(h_spec: torch.Tensor, xall_re: torch.Tensor,
-                  xall_im: torch.Tensor, t: int):
+                  xall_im: torch.Tensor, t: int, paths=None):
     """Y[t] = sum_p H[p] * Xall[t + (P-1) - p] over a concatenated window:
     the plain version of :func:`fdl_mac`.
 
     ``h_spec``: ``[P, Cin, Cout, 2, K]``, or ``[S, P, ...]`` per stream;
     ``xall_re``/``xall_im``: ``[..., T+P-1, Cin, K]``.  Returns
     ``(yr, yi)`` each ``[..., T, Cout, K]``.  Small channel counts run
-    as elementwise products, large ones as :func:`fdl_mac_einsum`.
+    as elementwise products, large ones as :func:`fdl_mac_einsum`.  With
+    ``paths``, (input, output) pairs, the elementwise products run over
+    those pairs alone: where the pairs left out have all-zero H, the
+    sums equal the dense ones bit for bit (they only skip exact zeros).
     ``fdl_mac_plain.cuda_calls`` counts calls on CUDA tensors: the engine
     never makes one (a card runs the kernels), only comparisons do."""
     if xall_re.is_cuda:
         fdl_mac_plain.cuda_calls += 1
     p, cin, cout = h_spec.shape[-5], h_spec.shape[-4], h_spec.shape[-3]
-    if cin * cout > 16:
-        return fdl_mac_einsum(h_spec, xall_re, xall_im, t)
+    if paths is None:
+        if cin * cout > 16:
+            return fdl_mac_einsum(h_spec, xall_re, xall_im, t)
+        paths = [(i, o) for i in range(cin) for o in range(cout)]
+    # Per output, its inputs in order, as the dense loop sums them.
+    paths = sorted(paths, key=lambda io: (io[1], io[0]))
     acc_r = [None] * cout
     acc_i = [None] * cout
     for pi in range(p):
         off = (p - 1) - pi
-        for o in range(cout):
-            for i in range(cin):
-                xr = xall_re[..., off : off + t, i, :]
-                xi = xall_im[..., off : off + t, i, :]
-                hr = h_spec[..., pi, i, o, 0, :].unsqueeze(-2)
-                hi = h_spec[..., pi, i, o, 1, :].unsqueeze(-2)
-                tr = xr * hr - xi * hi
-                ti = xr * hi + xi * hr
-                acc_r[o] = tr if acc_r[o] is None else acc_r[o] + tr
-                acc_i[o] = ti if acc_i[o] is None else acc_i[o] + ti
-    return torch.stack(acc_r, dim=-2), torch.stack(acc_i, dim=-2)
+        for i, o in paths:
+            xr = xall_re[..., off : off + t, i, :]
+            xi = xall_im[..., off : off + t, i, :]
+            hr = h_spec[..., pi, i, o, 0, :].unsqueeze(-2)
+            hi = h_spec[..., pi, i, o, 1, :].unsqueeze(-2)
+            tr = xr * hr - xi * hi
+            ti = xr * hi + xi * hr
+            acc_r[o] = tr if acc_r[o] is None else acc_r[o] + tr
+            acc_i[o] = ti if acc_i[o] is None else acc_i[o] + ti
+    shape = (*xall_re.shape[:-3], t, xall_re.shape[-1])
+    zero = xall_re.new_zeros(shape)
+    return (torch.stack([zero if a is None else a for a in acc_r], dim=-2),
+            torch.stack([zero if a is None else a for a in acc_i], dim=-2))
 
 
 fdl_mac_plain.cuda_calls = 0

@@ -36,6 +36,7 @@ from folve_tpu_torch.engine.kernels.conv_step import (
     conv_step_fused,
     fused_preshape,
     fused_supported,
+    live_paths,
     permute_h_for_fused,
     unroll_ring,
 )
@@ -118,11 +119,16 @@ def _n_valid(n_valid, s: int, default: int, device) -> torch.Tensor:
 
 
 def mac_route(p: int, cin: int, cout: int, t: int) -> str:
-    """Which MAC runs for these shapes, mirroring the JAX package's
-    ``chunk_step``: ``"einsum"`` past 16 channel pairs (XLA there, no
-    kernel), ``"split"`` (:func:`fdl_mac_split`) for P >= 2 with
-    min(P, T) <= 32, else ``"window"`` (:func:`fdl_mac` over the
-    concatenated [T+P-1] window: P = 1, or a deep FDL)."""
+    """Which MAC the split route runs for these shapes, mirroring the JAX
+    package's ``chunk_step``: ``"einsum"`` past 16 channel pairs (XLA
+    there, no kernel), ``"split"`` (:func:`fdl_mac_split`) for P >= 2
+    with min(P, T) <= 32, else ``"window"`` (:func:`fdl_mac` over the
+    concatenated [T+P-1] window: P = 1, or a deep FDL).  The serving
+    steps send a shared bank of up to 16 x 16 channels with P >= 2 to
+    kernel 1 instead (:func:`fused_serving_supported`), its MAC over the
+    live paths alone; so the einsum is left to ``chunk_step`` (the CLI's
+    ``convolve``), to mixed batches of per-stream banks and to P = 1 or
+    wider banks, past 16 pairs."""
     if cin * cout > 16:
         return "einsum"
     if p >= 2 and min(p, t) <= SPLIT_LIMIT:
@@ -307,9 +313,20 @@ def batched_chunk_step(bank: FilterBank, states: StreamState, x, n_valid):
 shared_filter_chunk_step = batched_chunk_step
 
 
-# Pre-permuted fused-kernel spectra per bank: the permute is a real
-# device transpose, done once per compiled filter, not per step.
-_H_PERM: "weakref.WeakKeyDictionary[FilterBank, torch.Tensor]" = (
+class FusedFilter(typing.NamedTuple):
+    """A bank as kernel 1 takes it: the pre-permuted spectra
+    (:func:`permute_h_for_fused`) and the (input, output) pairs whose
+    spectra are not all zero (:func:`live_paths`), the only pairs its
+    MAC computes."""
+
+    h_perm: torch.Tensor
+    paths: tuple
+
+
+# FusedFilter per bank: the permute is a real device transpose and the
+# paths read the spectra back, so both are done once per compiled
+# filter, not per step.
+_FUSED: "weakref.WeakKeyDictionary[FilterBank, FusedFilter]" = (
     weakref.WeakKeyDictionary())
 
 
@@ -323,15 +340,16 @@ def fused_serving_supported(bank: FilterBank, t: int) -> bool:
     return fused_supported(p, cin, cout, t, n)
 
 
-def eager_h_perm(bank: FilterBank):
-    """Pre-permuted fused-kernel filter spectra for ``bank``, or None
-    when the bank cannot take the fused route; cached per bank."""
+def fused_filter(bank: FilterBank) -> FusedFilter | None:
+    """``bank`` as kernel 1 takes it, cached per bank, or None when the
+    bank cannot take the fused route."""
     if not fused_serving_supported(bank, 1):
         return None
-    hit = _H_PERM.get(bank)
+    hit = _FUSED.get(bank)
     if hit is None:
-        hit = permute_h_for_fused(bank.h_spec, 2 * bank.fragm)
-        _H_PERM[bank] = hit
+        h = permute_h_for_fused(bank.h_spec, 2 * bank.fragm)
+        hit = FusedFilter(h, live_paths(h))
+        _FUSED[bank] = hit
     return hit
 
 
@@ -341,45 +359,47 @@ def _valid_frames(n_valid: torch.Tensor, t: int, b: int) -> torch.Tensor:
 
 
 def serving_chunk_step(bank: FilterBank, states: StreamState, x, n_valid,
-                       h_perm=None):
+                       fused: FusedFilter | None = None):
     """Batched shared-filter serving step: ``states`` batched, ``x``
     [S, T, Cin, fragm], ``n_valid`` [S].  Runs as the one fused kernel
     when the shape allows (:func:`fused_serving_supported`), else as the
-    split three-kernel step; same semantics either way."""
+    split three-kernel step; same semantics either way.  ``fused``: the
+    caller's :func:`fused_filter` of ``bank``, else looked up."""
     with device_span("engine.step"):
         with span("engine.prep"):
             x = _f32(x, bank.device)
             s, t = x.shape[0], x.shape[1]
             nv = _n_valid(n_valid, s, t * bank.fragm, bank.device)
-            fused = fused_serving_supported(bank, t)
-            if fused:
+            on_kernel = fused_serving_supported(bank, t)
+            if on_kernel:
                 valid = _valid_frames(nv, t, bank.fragm)
-                h = h_perm if h_perm is not None else eager_h_perm(bank)
-        if not fused:
+                fused = fused or fused_filter(bank)
+        if not on_kernel:
             return _batched_step(bank.h_spec, bank.fragm, states, x, nv)
         y, hr, hi, tl, mx = conv_step_fused(
-            h, x, states.hist_re, states.hist_im, states.tail, valid, 2 * bank.fragm)
+            fused.h_perm, x, states.hist_re, states.hist_im, states.tail, valid,
+            2 * bank.fragm, paths=fused.paths)
         with device_span("engine.monitor"):
             mx = torch.maximum(states.max_abs, mx)
         return StreamState(hr, hi, tl, mx), y
 
 
 def single_chunk_step(bank: FilterBank, state: StreamState, x,
-                      n_valid=None, h_perm=None):
+                      n_valid=None, fused: FusedFilter | None = None):
     """:func:`chunk_step` for one stream, through the fused kernel when
     the shape allows (the lone-stream pump)."""
     with device_span("engine.step"):
         with span("engine.prep"):
             x = _f32(x, bank.device)
             t = x.shape[0]
-            fused = fused_serving_supported(bank, t)
-            if fused:
+            on_kernel = fused_serving_supported(bank, t)
+            if on_kernel:
                 states = stack_states([state])
-        if not fused:
+        if not on_kernel:
             return chunk_step(bank, state, x, n_valid)
         new, y = serving_chunk_step(bank, states, x[None],
                                     t * bank.fragm if n_valid is None else n_valid,
-                                    h_perm)
+                                    fused)
         return unstack_state(new, 0), y[0]
 
 
@@ -442,10 +462,11 @@ def stage_x_for_fused(bank: FilterBank, x):
 
 
 def fused_serving_step_pre(bank: FilterBank, carry: FusedServingCarry, x5,
-                           n_valid, h_perm=None):
+                           n_valid, fused: FusedFilter | None = None):
     """Steady-state fused serving step on pre-shaped arrays: ``x5``
     [S, T, Cin, rows, m2]; returns ``(carry', y5)`` with ``y5`` [S, T,
-    Cout, rows, m2].  Same semantics as :func:`serving_chunk_step`.
+    Cout, rows, m2].  Same semantics as :func:`serving_chunk_step`, and
+    the same ``fused``.
 
     The kernel runs in ring mode: it writes the step's new hist rows into
     ``carry``'s hist in place and advances the head, so ``carry`` is
@@ -456,10 +477,10 @@ def fused_serving_step_pre(bank: FilterBank, carry: FusedServingCarry, x5,
             s, t = x5.shape[0], x5.shape[1]
             nv = _n_valid(n_valid, s, t * bank.fragm, bank.device)
             valid = _valid_frames(nv, t, bank.fragm)
-            h = h_perm if h_perm is not None else eager_h_perm(bank)
+            fused = fused or fused_filter(bank)
         y5, hr, hi, tl, mx = conv_step_fused(
-            h, x5, carry.hist_re, carry.hist_im, carry.tail, valid, 2 * bank.fragm,
-            hist_t=True, head=carry.head)
+            fused.h_perm, x5, carry.hist_re, carry.hist_im, carry.tail, valid,
+            2 * bank.fragm, hist_t=True, head=carry.head, paths=fused.paths)
         with device_span("engine.monitor"):
             mx = torch.maximum(carry.max_abs, mx)
         head = (carry.head + t) % (bank.partitions - 1)

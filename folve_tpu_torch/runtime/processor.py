@@ -20,7 +20,7 @@ import torch
 from folve_tpu_torch.engine.device import resolve_device
 from folve_tpu_torch.engine.stream import (
     StreamState,
-    eager_h_perm,
+    fused_filter,
     init_state,
     single_chunk_step,
 )
@@ -112,9 +112,9 @@ class SoundProcessor:
         # steps shared with other concurrently-pumping streams.
         self.scheduler = scheduler
         self.latency = LatencyStats()
-        # Pre-permuted fused-kernel filter spectra (None when the bank
+        # The bank as the fused kernel takes it (None when the bank
         # cannot take the fused route), once per processor.
-        self._h_perm = eager_h_perm(self.bank)
+        self._fused = fused_filter(self.bank)
         self._state = init_state(self.bank, device=self.bank.device)
         b = self.bank.fragm
         self._in_buf = np.zeros((b, self.bank.ninp), dtype=np.float32)
@@ -207,7 +207,7 @@ class SoundProcessor:
 
     def _step(self, x: np.ndarray, n_valid: int):
         return single_chunk_step(self.bank, self._state, x, n_valid,
-                                 h_perm=self._h_perm)
+                                 fused=self._fused)
 
     def _emit(self, fl: _Inflight) -> None:
         """Fetch one pipelined chunk to the host and hand it to its sink."""

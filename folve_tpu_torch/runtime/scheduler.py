@@ -219,7 +219,7 @@ class DeviceScheduler:
         self._window_s = window_s
         # LRU of the mixed-filter path's stacked spectra, keyed by the
         # identities of the source tensors.  (The fused kernel's permuted
-        # spectra are cached per bank by engine.stream.eager_h_perm.)
+        # spectra are cached per bank by engine.stream.fused_filter.)
         self._placed: "OrderedDict[object, Tuple]" = OrderedDict()
         # Stream tokens recently seen by submit(): skip the coalescing
         # window when provably only one stream is pumping.

@@ -56,14 +56,23 @@ def mac_layout(s, p, cout, t):
 
 
 def model_step(hp, x, hist_re, hist_im, tail, valid, n, hist_t, layout=None,
-               head=None):
+               head=None, paths=None):
     """The kernel's function, phase by phase.  ``hp`` [P, Cin, Cout, 2, K]
     in bin order kk; ``x`` [S, T, Cin, B]; the hist [S, P-1, Cin, K]
     canonical or, with ``hist_t``, in bin order kk, oldest row first or,
     with ``head``, a ring whose oldest row is slot ``head``; ``tail``
-    [S, Cout, B]; ``valid`` [S, T].  Returns (y, hist_re', hist_im',
-    tail', max), the hist a ring too with ``head``."""
+    [S, Cout, B]; ``valid`` [S, T]; ``paths`` the (i, o) pairs the MAC
+    computes (default: all).  Returns (y, hist_re', hist_im', tail',
+    max), the hist a ring too with ``head``."""
     p, cin, cout, _, k = hp.shape
+    # The launcher's path table: a mask of live outputs per input, and
+    # those outputs in order, four bits each.
+    masks = [0] * cin
+    for i, o in (paths if paths is not None else
+                 [(i, o) for i in range(cin) for o in range(cout)]):
+        masks[i] |= 1 << o
+    outs = [sum(o << (4 * j) for j, o in enumerate(o for o in range(cout) if m >> o & 1))
+            for m in masks]
     s_, t_ = x.shape[:2]
     b = n // 2
     plan = rfft.get_plan(n)
@@ -107,13 +116,19 @@ def model_step(hp, x, hist_re, hist_im, tail, valid, n, hist_t, layout=None,
             ns, ncc = min(sg, s_ - s0), min(cg, nch - c0)
             acc = np.zeros((ns, cout, ncc, TT, TB), complex)  # one warp per (s, o, chunk)
             for i in range(cin):
+                if masks[i] == 0:  # no live path from input i
+                    continue
+                nl = bin(masks[i]).count("1")
                 for p0 in range(0, p, pc):
                     npc = min(pc, p - p0)
                     kp = -(-npc // TT) * TT
                     rows, wbase = ncc * TT + kp, c0 * TT + p - p0 - npc
-                    hs = np.zeros((kp, cout, TB), complex)  # step k: partition p0+npc-1-k
+                    # Step k: partition p0+npc-1-k, of i's live outputs.
+                    hs = np.zeros((kp, nl, TB), complex)
                     for st in range(npc):
-                        hs[st] = h[p0 + npc - 1 - st, i][:, kb]
+                        for j in range(nl):
+                            oo = (outs[i] >> (4 * j)) & 15
+                            hs[st, j] = h[p0 + npc - 1 - st, i, oo][kb]
                     ws = np.zeros((ns, rows, TB), complex)  # zero past row T+P-2
                     for ss in range(ns):
                         for r in range(rows):
@@ -121,12 +136,15 @@ def model_step(hp, x, hist_re, hist_im, tail, valid, n, hist_t, layout=None,
                                 ws[ss, r] = window(s0 + ss, wbase + r, i, kb)
                     for us in range(ns):
                         for o in range(cout):
+                            if not masks[i] >> o & 1:  # a dead path: the warp sits out
+                                continue
+                            jo = bin(masks[i] & ((1 << o) - 1)).count("1")
                             for uc in range(ncc):
                                 slot = [ws[us, uc * TT + q] for q in range(TT)]
                                 for base in range(0, kp, TT):
                                     for k8 in range(TT):
                                         for j in range(TT):
-                                            acc[us, o, uc, j] += (hs[base + k8, o]
+                                            acc[us, o, uc, j] += (hs[base + k8, jo]
                                                                   * slot[(j + k8) % TT])
                                         slot[k8] = ws[us, uc * TT + base + k8 + TT]
             for us in range(ns):
@@ -296,6 +314,37 @@ def test_schedule_model_ring_chained_states_from_carry(rng):
     np.testing.assert_allclose(back.hist_re.numpy(), canon(jr), atol=2e-4)
     np.testing.assert_allclose(back.hist_im.numpy(), canon(ji), atol=2e-4)
     np.testing.assert_allclose(back.tail.numpy(), jt, atol=2e-4)
+
+
+# 5.1 bass management (L R C LFE Ls Rs): each main to itself and to the
+# sub's output 3, and LFE to output 3 (0-based).
+BASS_PATHS = tuple(sorted([(i, i) for i in (0, 1, 2, 4, 5)]
+                          + [(i, 3) for i in (0, 1, 2, 3, 4, 5)]))
+
+
+@pytest.mark.parametrize("head", [None, 1])
+def test_schedule_model_path_table_matches_pallas(rng, head):
+    """6 x 6 with 11 live paths: the model stages and sums only the
+    table's paths and matches the reference's dense kernel on the same
+    spectra, whose other 25 pairs are zero; in ring mode too."""
+    p, t, fragm, cin, cout, s = 3, 2, 64, 6, 6, 2
+    hp, x, hr, hi, tail, valid = _inputs(rng, p, t, fragm, cin, cout, s)
+    live = np.zeros((cin, cout), bool)
+    live[tuple(np.array(BASS_PATHS).T)] = True
+    hp = np.where(live[None, :, :, None, None], hp, 0.0).astype(np.float32)
+    n = 2 * fragm
+    hr5, hi5 = _tr5(hr, s, p, cin, n), _tr5(hi, s, p, cin, n)
+    x5, tail4 = _pre_args(x, tail, n)
+    ref = jcs.pallas_conv_step_fused_pre(
+        *(jnp.asarray(a) for a in (hp, x5, hr5, hi5, tail4, valid)), n,
+        interpret=True, passes=6, hist_t=True)
+    ring = (lambda h: h) if head is None else (lambda h: np.roll(h, head, axis=1))
+    got = list(model_step(hp, x, ring(hr5), ring(hi5), tail, valid, n, hist_t=True,
+                          head=head, paths=BASS_PATHS))
+    if head is not None:
+        new_head = (head + t) % (p - 1)
+        got[1:3] = (np.roll(h.reshape(hr5.shape), -new_head, axis=1) for h in got[1:3])
+    _close(got, ref)
 
 
 def test_mac_layout():

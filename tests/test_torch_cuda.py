@@ -136,7 +136,8 @@ def test_fused_kernel_matches_plain_on_card(cuda, rng, p, t, fragm, hist_t, cin,
     ring in place; the whole ring is compared."""
     args = _fused_case(cuda, rng, p, t, fragm, hist_t, cin, cout, s)
     ref_args = [a.clone() if torch.is_tensor(a) else a for a in args]
-    got = tcs.conv_step_fused(*args, hist_t=hist_t, head=head)
+    got = tcs.conv_step_fused(*args, hist_t=hist_t, head=head,
+                              paths=tcs.all_paths(cin, cout))
     ref = tcs.conv_step_fused_plain(*ref_args, hist_t=hist_t, head=head)
     torch.cuda.synchronize()
     assert _rel_err(got, ref) < 1e-5
@@ -150,8 +151,9 @@ def test_fused_kernel_repeat_calls_bit_identical(cuda, rng, hist_t):
     """The overlap-add's atomics add two terms per sample, so two calls
     on the same inputs agree bit for bit."""
     args = _fused_case(cuda, rng, 16, 8, 8192, hist_t)
-    first = tcs.conv_step_fused(*args, hist_t=hist_t)
-    second = tcs.conv_step_fused(*args, hist_t=hist_t)
+    paths = tcs.all_paths(2, 2)
+    first = tcs.conv_step_fused(*args, hist_t=hist_t, paths=paths)
+    second = tcs.conv_step_fused(*args, hist_t=hist_t, paths=paths)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
@@ -167,7 +169,7 @@ def test_fused_ring_matches_copy_out_over_chained_steps(cuda, rng):
     p, t, fragm, s = 25, 1, 8192, 4
     ir = rng.standard_normal((2, 2, p * fragm - 5)).astype(np.float32) / 400
     bank = compile_filter_bank(ir, fragm=fragm, device=cuda)
-    hp = ts.eager_h_perm(bank)
+    fused = ts.fused_filter(bank)
     x = torch.from_numpy(rng.standard_normal((5, s, t, 2, fragm)).astype(np.float32))
     x = x.to(cuda)
     nv = torch.full((s,), t * fragm, device=cuda)
@@ -177,9 +179,9 @@ def test_fused_ring_matches_copy_out_over_chained_steps(cuda, rng):
     before = tcs.conv_step_fused.ring_steps
     for r in range(5):
         x5 = ts.stage_x_for_fused(bank, x[r])
-        carry, y5 = ts.fused_serving_step_pre(bank, carry, x5, nv, h_perm=hp)
-        y, hr, hi, tl, _ = tcs.conv_step_fused(hp, x5, hr, hi, tl, valid, 2 * fragm,
-                                               hist_t=True)
+        carry, y5 = ts.fused_serving_step_pre(bank, carry, x5, nv, fused=fused)
+        y, hr, hi, tl, _ = tcs.conv_step_fused(fused.h_perm, x5, hr, hi, tl, valid,
+                                               2 * fragm, hist_t=True, paths=fused.paths)
         assert torch.equal(y5, y), r
     torch.cuda.synchronize()
     assert carry.head == 5 % (p - 1)

@@ -95,8 +95,16 @@ def test_fdl_mac_split_plain_matches_pallas(rng, p, t, cin, cout):
 def test_fused_helpers_match_jax(rng):
     n = 256
     assert tcs.fused_preshape(n) == jcs.fused_preshape(n)
-    for args in [(4, 2, 2, 3, n), (1, 1, 1, 2, n), (2, 4, 5, 2, n), (3, 1, 1, 0, n)]:
+    for args in [(4, 2, 2, 3, n), (1, 1, 1, 2, n), (3, 1, 1, 0, n), (2, 1, 16, 2, n),
+                 (2, 4, 4, 2, n), (1, 6, 6, 2, n)]:
         assert tcs.fused_supported(*args) == jcs.fused_supported(*args)
+    # Past 16 pairs the JAX package leaves the fused kernel; the port's
+    # takes up to 16 channels a side (its MAC computes the live paths).
+    for args in [(2, 4, 5, 2, n), (2, 6, 6, 8, n), (16, 8, 8, 8, 2 * 8192),
+                 (2, 16, 16, 1, n)]:
+        assert tcs.fused_supported(*args) and not jcs.fused_supported(*args)
+    for args in [(2, 17, 1, 2, n), (2, 1, 17, 2, n), (2, 17, 17, 2, n)]:
+        assert not tcs.fused_supported(*args)
     h = rng.standard_normal((3, 2, 2, 2, half_bins(n))).astype(np.float32)
     a = np.asarray(jcs.permute_h_for_fused(jnp.asarray(h), n))
     b = tcs.permute_h_for_fused(_t(h), n).numpy()
@@ -130,7 +138,8 @@ def test_conv_step_plain_matches_pallas(rng, p, t, fragm, cin, cout):
         interpret=True, passes=6)
     tcs.conv_step_fused.launches = 0
     got = tcs.conv_step_fused(*(_t(a) for a in (hp, x, hr, hi, tail)),
-                              torch.from_numpy(valid), 2 * fragm)
+                              torch.from_numpy(valid), 2 * fragm,
+                              paths=tcs.all_paths(cin, cout))
     assert tcs.conv_step_fused.launches == 0
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-4)
@@ -148,7 +157,7 @@ def test_conv_step_pre_hist_t_matches_pallas(rng):
         *(jnp.asarray(a) for a in args), jnp.asarray(valid), 2 * fragm,
         interpret=True, passes=6, hist_t=True)
     got = tcs.conv_step_fused(*(_t(a) for a in args), torch.from_numpy(valid),
-                              2 * fragm, hist_t=True)
+                              2 * fragm, hist_t=True, paths=tcs.all_paths(cin, cout))
     for g, r in zip(got, ref):
         assert tuple(g.shape) == tuple(r.shape)
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-4)

@@ -160,7 +160,7 @@ def test_single_chunk_step_matches_jax(rng):
     st = ts.init_state(tb, device="cpu")
     for r in range(3):
         st, y = ts.single_chunk_step(tb, st, x[r, 1], nv[r, 1],
-                                     h_perm=ts.eager_h_perm(tb))
+                                     fused=ts.fused_filter(tb))
         np.testing.assert_allclose(y.numpy(), refs[1][1][r], atol=2e-4)
     _close_state(st, refs[1][0])
 
